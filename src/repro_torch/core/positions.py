@@ -1,0 +1,80 @@
+"""Position blocks — the paper's core intermediate representation.
+
+PosDB's positional operators exchange blocks of row ids instead of value
+tuples.  As in the reference every buffer has a fixed capacity: a position
+block is an ``int32`` vector plus a live count, and dead slots hold an
+out-of-range sentinel so downstream gathers give zeros (see
+``ColumnTable.take``).
+
+The reference's scatters DROP out-of-range indices; torch on CUDA would
+assert instead.  So every dropping scatter here writes into a copy with one
+spare slot, routes the dropped entries there, and slices it off.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+__all__ = ["PosBlock", "empty_block", "compact_mask", "append_block"]
+
+
+class PosBlock(NamedTuple):
+    """Fixed-capacity block of row positions.
+
+    positions : (cap,) int32 — valid entries first, sentinel padding after
+    count     : ()     int32 — number of live entries
+    """
+
+    positions: torch.Tensor
+    count: torch.Tensor
+
+    @property
+    def capacity(self) -> int:
+        return self.positions.shape[0]
+
+    def valid_mask(self) -> torch.Tensor:
+        return torch.arange(self.capacity, dtype=torch.int32,
+                            device=self.positions.device) < self.count
+
+
+def empty_block(capacity: int, sentinel: int, device) -> PosBlock:
+    return PosBlock(
+        positions=torch.full((capacity,), sentinel, dtype=torch.int32,
+                             device=device),
+        count=torch.zeros((), dtype=torch.int32, device=device))
+
+
+def compact_mask(mask: torch.Tensor, capacity: int, sentinel: int
+                 ) -> PosBlock:
+    """Turn a boolean row mask into a compacted position block (the columnar
+    Filter operator).  Ascending order; matches beyond ``capacity`` are
+    dropped (callers compare ``count`` with the capacity).  A cumsum
+    compaction: no host sync."""
+    n = mask.shape[0]
+    count = mask.sum(dtype=torch.int32)
+    rank = torch.cumsum(mask, 0, dtype=torch.int32) - 1
+    slot = torch.where(mask & (rank < capacity), rank, capacity)
+    out = torch.full((capacity + 1,), sentinel, dtype=torch.int32,
+                     device=mask.device)
+    out.scatter_(0, slot.long(),
+                 torch.arange(n, dtype=torch.int32, device=mask.device))
+    return PosBlock(out[:capacity], count.clamp(max=capacity))
+
+
+def append_block(buf: torch.Tensor, buf_count: torch.Tensor, block: PosBlock
+                 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Append a block's live entries into a larger result buffer.
+
+    Returns (new_buffer, new_count, overflowed).  Entries past the buffer
+    capacity are dropped (and flagged) rather than wrapped.  ``buf`` itself
+    is not modified."""
+    cap_r = buf.shape[0]
+    slots = buf_count + torch.arange(block.capacity, dtype=torch.int32,
+                                     device=buf.device)
+    live = block.valid_mask() & (slots < cap_r)
+    ext = torch.cat([buf, buf.new_zeros((1,))])
+    ext.scatter_(0, torch.where(live, slots, cap_r).long(),
+                 torch.where(live, block.positions, 0))
+    new_count = (buf_count + block.count).clamp(max=cap_r)
+    return ext[:cap_r], new_count, (buf_count + block.count) > cap_r
