@@ -35,11 +35,13 @@ class CSRIndex(NamedTuple):
 
 def build_csr(src: torch.Tensor, num_vertices: int) -> CSRIndex:
     """Build the index on ``src``'s device: a stable sort for ``perm``, a
-    bincount plus cumsum for ``indptr``.  Sources outside [0, V) are left
-    out of the counts, as the reference's dropping scatter does."""
+    bincount plus cumsum for ``indptr``.  The counts follow the reference's
+    dropping scatter-add: a negative source ``-k`` counts at ``V - k``, as
+    a JAX index does, and a source still outside [0, V) is left out."""
     perm = torch.sort(src, stable=True).indices.to(torch.int32)
-    in_range = (src >= 0) & (src < num_vertices)
-    bins = torch.where(in_range, src, num_vertices).long()
+    wrapped = torch.where(src < 0, src + num_vertices, src)
+    in_range = (wrapped >= 0) & (wrapped < num_vertices)
+    bins = torch.where(in_range, wrapped, num_vertices).long()
     counts = torch.bincount(bins, minlength=num_vertices + 1)[:num_vertices]
     indptr = torch.cat([torch.zeros((1,), dtype=torch.int32,
                                     device=src.device),

@@ -1,21 +1,37 @@
-"""Positional operator algebra + the fixed-point driver (PRecursive subset).
+"""Positional operator algebra + the fixed-point driver.
 
-The paper's positional recursive CTE (Fig. 4) is a :class:`Pipeline`: a
-seed operator, a tuple of per-level operators and a finisher, run by ONE
-:func:`fixed_point` driver.  This slice of the port carries the operators
-the PRecursive plan uses:
+Every engine of the port is a :class:`Pipeline`: a seed operator, a tuple
+of per-level operators and a finisher, run by ONE :func:`fixed_point`
+driver.  The operators ported so far:
 
 ===================  ======================================================
-``Seed``             the non-recursive CTE child (Filter on the root)
+``Seed``             the non-recursive CTE child (Filter on the root, or
+                     the root bit of a dense bitmap / vertex-depth array)
 ``ReadTargets``      per-level read of the join column out of the frontier
                      positions (one column gather)
 ``VisitedDedup``     BFS vertex dedup (visited bitmap + scatter-argmin)
 ``CSRIndexJoin``     Fig. 4's IndexJoin: frontier vertices -> edge positions
                      through the CSR join index
+``DenseBitmapStep``  beyond-paper dense-frontier level (boolean SpMV push)
+``PullStep``         its Beamer bottom-up dual over the reverse CSR
+``DirectionSwitch``  per level, push or pull from exact work terms
+``HybridStep``       positional IndexJoin while the frontier is small,
+                     dense push above a fraction of the vertices
+``HybridPullStep``   the bottom-up twin of HybridStep's dense branch
 ``AppendUnionAll``   the recursive UNION ALL: append the level block to the
                      working result, tagging each row with its BFS level
 ``LateMaterialize``  Fig. 4's single post-fixed-point Materialize
+``CompactEmitted``   dense finisher: emitted-edge mask -> positions -> one
+                     late gather
+``DeferredEmit``     the same, deriving the emitted mask from per-vertex
+                     depths in one pass after the fixed point
 ===================  ======================================================
+
+Frontier representation per pipeline (``Pipeline.rep``): ``'pos'`` — a
+block of edge positions (PRecursive, hybrid); ``'dense'`` — a boolean
+vertex bitmap (bitmap) or, with deferred emission, the per-vertex depth
+array (diropt).  State a pipeline does not use is a zero-size placeholder,
+as in the reference.
 
 Direction: the join view (``ctx.join_src``/``ctx.join_dst`` and the CSR
 over ``join_src``) decides it.  ``outbound`` uses (from, to); ``inbound``
@@ -23,17 +39,24 @@ the reverse; ``both`` the FUSED bidirectional view (``ctx.bidir``) with a
 VIRTUAL 2E join space (position ``p < E`` is edge ``p`` forward, ``p >= E``
 backward) folded back onto real edges at append time.
 
+The reference decides its data-dependent branches (``lax.cond``) on the
+device; here they are Python branches on host values.  The fixed-point
+loop copies the level's scalars to the host once per level, in one
+transfer (:class:`HostCounts`), and the operators branch on those.
+
 Every gather clamps its indices and every dropping scatter routes dropped
 entries to a spare slot: torch on CUDA asserts where JAX clamps or drops.
-Public fields stay int32, as in the reference.
+Public fields stay int32 (``level_dirs`` int8), as in the reference.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
+from ..kernels.frontier_pull.ref import frontier_pull_ref
 from .csr import CSRIndex, expand_frontier, expand_frontier_both
 from .positions import PosBlock, append_block, compact_mask
 from .semiring import or_combine
@@ -41,9 +64,11 @@ from .table import ColumnTable
 
 __all__ = [
     "DIRECTIONS", "check_direction", "EngineCaps", "BFSResult", "Context",
-    "TraversalState", "Operator", "Seed", "ReadTargets", "VisitedDedup",
-    "CSRIndexJoin", "AppendUnionAll", "LateMaterialize", "Pipeline",
-    "fixed_point", "execute", "dedup_targets",
+    "HostCounts", "TraversalState", "Operator", "Seed", "ReadTargets",
+    "VisitedDedup", "CSRIndexJoin", "DenseBitmapStep", "PullStep",
+    "DirectionSwitch", "HybridStep", "HybridPullStep", "AppendUnionAll",
+    "LateMaterialize", "CompactEmitted", "DeferredEmit", "Pipeline",
+    "fixed_point", "execute", "dedup_targets", "bitmap_level",
 ]
 
 DIRECTIONS = ("outbound", "inbound", "both")
@@ -69,6 +94,8 @@ class BFSResult(NamedTuple):
     depth: torch.Tensor               # () int32 levels actually executed
     overflow: torch.Tensor            # () bool any capacity overflow observed
     row_depths: Optional[torch.Tensor] = None   # (result_cap,) int32 level
+    level_dirs: Optional[torch.Tensor] = None   # (L,) int8 per-level
+    #   decision of a DirectionSwitch pipeline (-1 unused, 0 push, 1 pull)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -76,12 +103,13 @@ class Context:
     """Runtime inputs of a pipeline: storage + the direction-resolved join
     view.  ``join_src`` is the column the CSR indexes; ``join_dst`` holds the
     next vertex reached by each join-space edge.  ``rcsr`` is the reverse
-    CSR of the join view; ``bidir=True`` selects the fused bidirectional
+    CSR of the join view (groups join edges by ``join_dst``; the pull
+    operators walk it); ``bidir=True`` selects the fused bidirectional
     view for ``direction='both'`` with ``both_indptr`` the merged out+in
     indptr."""
 
     table: ColumnTable
-    csr: CSRIndex
+    csr: Optional[CSRIndex]
     join_src: torch.Tensor
     join_dst: torch.Tensor
     rcsr: Optional[CSRIndex] = None
@@ -89,19 +117,42 @@ class Context:
     bidir: bool = False
 
 
+class HostCounts(NamedTuple):
+    """The level's scalars on the host, copied by the fixed-point loop once
+    per level in one transfer: the depth of the level, its live frontier
+    entries and (switch pipelines only) the vertices discovered before
+    it."""
+
+    depth: int = 0
+    frontier: int = 0
+    visited: int = 0
+
+
 class TraversalState(NamedTuple):
-    """The state the PRecursive operators share across levels."""
+    """The state the operators share across levels.  One frontier
+    representation is active per pipeline; the others are zero-size."""
 
     frontier_pos: torch.Tensor     # (F,) int32 join-space edge positions
     frontier_count: torch.Tensor   # () int32 live frontier entries
     targets: torch.Tensor          # (F,) int32 target vertices
     keep: torch.Tensor             # (F,) bool survivors of dedup
+    frontier_bits: torch.Tensor    # (V,) bool dense frontier
+    emitted: torch.Tensor          # (EJ,) bool emitted-edge mask
+    emit_depth: torch.Tensor       # (EJ,) int32 level of first emission
     visited: torch.Tensor          # (V,) bool BFS visited set
     result_pos: torch.Tensor       # (R,) int32 real result positions
     result_depth: torch.Tensor     # (R,) int32 BFS level per result row
     result_count: torch.Tensor     # () int32
     depth: torch.Tensor            # () int32 levels executed
     overflow: torch.Tensor         # () bool
+    vertex_depth: torch.Tensor     # (V,) int32 BFS depth per vertex (-1 =
+    #   undiscovered; deferred-emission pipelines derive the emitted mask
+    #   from it ONCE, after the fixed point)
+    visited_count: torch.Tensor    # () int32 discovered vertices so far
+    #   (kept by the deferred steps so the switch reads no popcount)
+    level_dirs: torch.Tensor       # (L,) int8 per-level switch decision
+    #   (-1 = level not executed, 0 = push, 1 = pull)
+    host: HostCounts = HostCounts()   # this level's scalars on the host
 
 
 # ---------------------------------------------------------------------------
@@ -158,12 +209,110 @@ def _join_dst_at(ctx: Context, pos: torch.Tensor) -> torch.Tensor:
     return torch.where(fwd, ctx.join_dst[p], ctx.join_src[p])
 
 
+def _join_src_at(ctx: Context, pos: torch.Tensor) -> torch.Tensor:
+    """The source-vertex column of the join view at join-space positions."""
+    if not ctx.bidir:
+        ej = ctx.join_src.shape[0]
+        return ctx.join_src[pos.clamp(0, ej - 1)]
+    e = ctx.join_src.shape[0]
+    fwd = pos < e
+    p = torch.where(fwd, pos, pos - e).clamp(0, e - 1)
+    return torch.where(fwd, ctx.join_src[p], ctx.join_dst[p])
+
+
 def _seed_mask(ctx: Context, root: int) -> torch.Tensor:
     """(EJ,) mask of join edges whose source is the root (the seed filter).
     Fused view: forward matches on ``from``, backward on ``to``."""
     if not ctx.bidir:
         return ctx.join_src == root
     return torch.cat([ctx.join_src == root, ctx.join_dst == root])
+
+
+def _hit_mask(ctx: Context, frontier_v: torch.Tensor) -> torch.Tensor:
+    """(EJ,) mask of join edges whose SOURCE vertex is in ``frontier_v``:
+    the rows one CTE level emits (push-side emission test)."""
+    nv = frontier_v.shape[0]
+    if not ctx.bidir:
+        return frontier_v[ctx.join_src.clamp(0, nv - 1)]
+    return torch.cat([frontier_v[ctx.join_src.clamp(0, nv - 1)],
+                      frontier_v[ctx.join_dst.clamp(0, nv - 1)]])
+
+
+def _set_drop(arr: torch.Tensor, idx: torch.Tensor, vals) -> torch.Tensor:
+    """``arr.at[idx].set(vals, mode="drop")`` for ``idx`` in [0, len]:
+    the callers route every dropped entry to ``len``, a spare slot that is
+    sliced off.  ``vals`` broadcasts to ``idx``; ``arr`` is not
+    modified."""
+    n = arr.shape[0]
+    ext = torch.cat([arr, arr.new_zeros((1,))])
+    vals = torch.as_tensor(vals, dtype=arr.dtype, device=arr.device)
+    ext.scatter_(0, idx.long(), vals.expand(idx.shape))
+    return ext[:n]
+
+
+def bitmap_level(from_col: torch.Tensor, to_col: torch.Tensor,
+                 frontier_v: torch.Tensor, visited: torch.Tensor
+                 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One dense push step.  Returns (edge_hit_mask, next_frontier,
+    visited); edge_hit_mask marks the edges whose source is in the frontier
+    (the rows the CTE emits this level)."""
+    nv = frontier_v.shape[0]
+    hit = frontier_v[from_col.clamp(0, nv - 1)]
+    nxt = or_combine(torch.zeros_like(frontier_v), to_col.clamp(0, nv - 1),
+                     hit)
+    nxt = nxt & ~visited
+    return hit, nxt, visited | nxt
+
+
+def _dense_push(ctx: Context, frontier_v: torch.Tensor,
+                visited: torch.Tensor
+                ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One dense PUSH step over the join view.  Returns
+    (edge_hit_mask (EJ,), next_frontier, visited)."""
+    if not ctx.bidir:
+        return bitmap_level(ctx.join_src, ctx.join_dst, frontier_v, visited)
+    nv = frontier_v.shape[0]
+    src = ctx.join_src.clamp(0, nv - 1)
+    dst = ctx.join_dst.clamp(0, nv - 1)
+    hit_f = frontier_v[src]
+    hit_b = frontier_v[dst]
+    nxt = or_combine(or_combine(torch.zeros_like(frontier_v), dst, hit_f),
+                     src, hit_b)
+    nxt = nxt & ~visited
+    return torch.cat([hit_f, hit_b]), nxt, visited | nxt
+
+
+def _dense_pull(ctx: Context, frontier_v: torch.Tensor,
+                visited: torch.Tensor, pull_fn=None) -> torch.Tensor:
+    """One dense PULL (Beamer bottom-up) step: the next frontier is every
+    UNVISITED vertex with an in-neighbor (over the join view) in the
+    frontier bitmap.  Over the reverse CSR, ``pull_fn`` (the
+    ``frontier_pull`` kernel wrapper) or, without one, its plain version
+    computes it.  The fused view takes no kernel, as in the reference."""
+    nv = frontier_v.shape[0]
+    cand = ~visited
+    empty = torch.zeros_like(frontier_v)
+    if ctx.bidir:
+        # fused view: both orientations contribute, natural edge order
+        src = ctx.join_src.clamp(0, nv - 1)
+        dst = ctx.join_dst.clamp(0, nv - 1)
+        nxt = or_combine(or_combine(empty, dst, cand[dst] & frontier_v[src]),
+                         src, cand[src] & frontier_v[dst])
+        return nxt & cand
+    if pull_fn is not None and ctx.rcsr is None:
+        raise ValueError(
+            "the frontier_pull kernel walks the reverse CSR; call "
+            "Dataset.ensure_reverse() before plugging it into a pull step")
+    if ctx.rcsr is not None:
+        pull = pull_fn or frontier_pull_ref
+        return pull(ctx.rcsr, ctx.join_src, ctx.join_dst, frontier_v,
+                    visited)
+    # no reverse CSR built (an outbound-only dataset on the CPU): the same
+    # bottom-up test in natural edge order, with an identical result
+    src = ctx.join_src.clamp(0, nv - 1)
+    dst = ctx.join_dst.clamp(0, nv - 1)
+    nxt = or_combine(empty, dst, cand[dst] & frontier_v[src])
+    return nxt & cand
 
 
 def _expand_join(ctx: Context, targets: torch.Tensor, keep: torch.Tensor,
@@ -188,10 +337,7 @@ def _tag_depths(result_depth: torch.Tensor, count: torch.Tensor,
                        device=result_depth.device)
     slots = count + idx
     live = (idx < block_count) & (slots < cap_r)
-    ext = torch.cat([result_depth, result_depth.new_zeros((1,))])
-    ext.scatter_(0, torch.where(live, slots, cap_r).long(),
-                 tag.to(torch.int32).expand(block_cap))
-    return ext[:cap_r]
+    return _set_drop(result_depth, torch.where(live, slots, cap_r), tag)
 
 
 # ---------------------------------------------------------------------------
@@ -212,17 +358,49 @@ class Operator:
 
 @dataclasses.dataclass(frozen=True)
 class Seed(Operator):
-    """The non-recursive child of the CTE: Filter[join_src = root]
-    compacted to a position block, with the root marked visited."""
+    """The non-recursive child of the CTE.
+
+    kind='edges' — Filter[join_src = root] compacted to a position block;
+    kind='dense' — the root bit in a dense vertex bitmap.
+    A deferred-emission pipeline (one that carries ``vertex_depth``) seeds
+    the root's depth 0 instead of any bitmap.  ``mark_emitted`` seeds the
+    emitted-edge mask of the positional pipelines that carry one."""
+
+    kind: str = "edges"
+    mark_emitted: bool = False
 
     def init(self, ctx, state, root):
+        if state.vertex_depth.shape[0]:
+            # deferred emission: the per-vertex depth array IS the visited
+            # set and the frontier (no separate bitmaps)
+            nvd = state.vertex_depth.shape[0]
+            vd = state.vertex_depth.clone()
+            vd[min(max(root, 0), nvd - 1)] = 0
+            one = torch.ones_like(state.visited_count)
+            return state._replace(vertex_depth=vd, visited_count=one,
+                                  frontier_count=one)
         nv = state.visited.shape[0]
+        r = min(max(root, 0), nv - 1)
         visited = state.visited.clone()
-        visited[min(max(root, 0), nv - 1)] = True
-        blk = compact_mask(_seed_mask(ctx, root), state.frontier_pos.shape[0],
-                           _num_join(ctx))
-        return state._replace(frontier_pos=blk.positions,
-                              frontier_count=blk.count, visited=visited)
+        visited[r] = True
+        if self.kind == "dense":
+            bits = torch.zeros_like(visited)
+            bits[r] = True
+            return state._replace(frontier_bits=bits, visited=visited,
+                                  frontier_count=torch.ones_like(
+                                      state.frontier_count))
+        ej = _num_join(ctx)
+        cap = state.frontier_pos.shape[0]
+        blk = compact_mask(_seed_mask(ctx, root), cap, ej)
+        state = state._replace(frontier_pos=blk.positions,
+                               frontier_count=blk.count, visited=visited)
+        if self.mark_emitted:
+            valid = blk.valid_mask()
+            idx = torch.where(valid, blk.positions, ej)
+            state = state._replace(
+                emitted=_set_drop(state.emitted, idx, valid),
+                emit_depth=_set_drop(state.emit_depth, idx, 0))
+        return state
 
 
 @dataclasses.dataclass(frozen=True)
@@ -266,6 +444,224 @@ class CSRIndexJoin(Operator):
                               overflow=state.overflow | ovf)
 
 
+def _record_deferred(state: TraversalState, new: torch.Tensor
+                     ) -> TraversalState:
+    """Deferred-emission bookkeeping: the loop carries ONLY the per-vertex
+    depth array (frontier = ``vd == depth``, visited = ``vd >= 0``) plus
+    the scalar visited count the switch predicate reads.  Newly discovered
+    vertices get depth ``state.depth + 1``; the emitted mask is derived
+    once, after the fixed point."""
+    count = new.sum(dtype=torch.int32)
+    vd = torch.where(new, state.depth + 1, state.vertex_depth)
+    return state._replace(vertex_depth=vd, frontier_count=count,
+                          visited_count=state.visited_count + count)
+
+
+@dataclasses.dataclass(frozen=True)
+class DenseBitmapStep(Operator):
+    """Beyond-paper dense level: the frontier is a vertex bitmap and one
+    level is a masked scatter over the full edge list (boolean-semiring
+    SpMV): O(E) work and no data-dependent shapes.
+
+    ``deferred=True`` (the direction-optimizing pipelines) skips the
+    per-level emitted-mask/emit-depth upkeep and records per-vertex depths
+    instead; :class:`DeferredEmit` rebuilds the identical emitted set in
+    ONE O(E) pass after the fixed point."""
+
+    deferred: bool = False
+
+    def deferred_new(self, ctx, state):
+        """The newly discovered vertices from the per-vertex depth array
+        alone (DirectionSwitch exchanges only this (V,) mask)."""
+        vd = state.vertex_depth
+        nv = vd.shape[0]
+        src = ctx.join_src.clamp(0, nv - 1)
+        dst = ctx.join_dst.clamp(0, nv - 1)
+        # frontier membership fused into the edge gather (vd[src] == depth)
+        empty = torch.zeros((nv,), dtype=torch.bool, device=vd.device)
+        tgt = or_combine(empty, dst, vd[src] == state.depth)
+        if ctx.bidir:
+            tgt = or_combine(tgt, src, vd[dst] == state.depth)
+        return tgt & (vd < 0)
+
+    def step(self, ctx, state):
+        if self.deferred:
+            return _record_deferred(state, self.deferred_new(ctx, state))
+        hit, nxt, visited = _dense_push(ctx, state.frontier_bits,
+                                        state.visited)
+        new = hit & ~state.emitted
+        return state._replace(
+            frontier_bits=nxt, visited=visited, emitted=state.emitted | hit,
+            emit_depth=torch.where(new, state.depth, state.emit_depth),
+            frontier_count=nxt.sum(dtype=torch.int32))
+
+
+@dataclasses.dataclass(frozen=True)
+class PullStep(Operator):
+    """Beamer-style bottom-up level: gather over the REVERSE CSR from
+    unvisited vertices, testing membership of their in-neighbors in the
+    frontier bitmap (the pull dual of :class:`DenseBitmapStep`'s push).
+    ``expand_fn`` plugs in the ``frontier_pull`` kernel wrapper.
+
+    In deferred mode a pull level touches no emitted-edge state at all; in
+    emitted mode the push-side hit mask is still computed (emission is
+    defined by the SQL join, not by how the next frontier was found)."""
+
+    deferred: bool = False
+    expand_fn: Optional[Callable] = None
+
+    def deferred_new(self, ctx, state):
+        """See DenseBitmapStep.deferred_new."""
+        vd = state.vertex_depth
+        return _dense_pull(ctx, vd == state.depth, vd >= 0, self.expand_fn)
+
+    def step(self, ctx, state):
+        if self.deferred:
+            return _record_deferred(state, self.deferred_new(ctx, state))
+        nxt = _dense_pull(ctx, state.frontier_bits, state.visited,
+                          self.expand_fn)
+        hit = _hit_mask(ctx, state.frontier_bits)
+        new = hit & ~state.emitted
+        return state._replace(
+            frontier_bits=nxt, visited=state.visited | nxt,
+            emitted=state.emitted | hit,
+            emit_depth=torch.where(new, state.depth, state.emit_depth),
+            frontier_count=nxt.sum(dtype=torch.int32))
+
+
+@dataclasses.dataclass(frozen=True)
+class DirectionSwitch(Operator):
+    """The direction-optimizing combinator: per level it picks the push or
+    the pull operator by comparing the estimated work terms, frontier
+    occupancy x avg out-degree against unvisited count x avg in-degree:
+
+        pull  iff  alpha * n_f * avg_out > (V - visited) * avg_in
+              and  beta * n_f >= V
+
+    The reference evaluates this in float32 inside a ``lax.cond``; here it
+    is evaluated in float32 on the host, from the counts the fixed-point
+    loop copied for the level (``state.host``), so it adds no sync.  The
+    decision is recorded in ``level_dirs``."""
+
+    push: Operator
+    pull: Operator
+    alpha: float = 1.0
+    beta: float = 64.0
+
+    def use_pull(self, ctx, state) -> bool:
+        f32 = np.float32
+        nv = state.vertex_depth.shape[0] or state.visited.shape[0]
+        avg = f32(float(_num_join(ctx)) / max(float(nv), 1.0))
+        n_f = f32(state.host.frontier)
+        if state.frontier_bits.shape[0] or state.vertex_depth.shape[0]:
+            # dense/deferred frontier: the count is VERTICES, scaled by
+            # the average out-degree to the push side's edge work
+            m_f = n_f * avg
+        else:                       # positional frontier: the edge block
+            m_f = n_f               # IS the push side's work
+        m_u = f32(nv - state.host.visited) * avg
+        return bool((f32(self.alpha) * m_f > m_u)
+                    & (f32(self.beta) * n_f >= f32(nv)))
+
+    def step(self, ctx, state):
+        use_pull = self.use_pull(ctx, state)
+        if state.level_dirs.shape[0]:
+            # written in place: the state's level_dirs belongs to this run
+            idx = min(state.host.depth, state.level_dirs.shape[0] - 1)
+            state.level_dirs[idx] = int(use_pull)
+        # a Python branch runs only the chosen side: for the deferred steps
+        # that is the reference's narrow exchange of one (V,) mask
+        return (self.pull if use_pull else self.push).step(ctx, state)
+
+
+def _install_edge_frontier(ctx: Context, state: TraversalState,
+                           nxt: PosBlock, visited: torch.Tensor,
+                           ovf: torch.Tensor) -> TraversalState:
+    """Shared positional-frontier bookkeeping (HybridStep and its pull
+    twin): install the next edge block and mark its positions emitted at
+    ``depth + 1``.  ``new`` reads ``emitted`` before it is written."""
+    ej = _num_join(ctx)
+    valid = nxt.valid_mask()
+    idx = torch.where(valid, nxt.positions, ej)
+    new = valid & ~state.emitted[nxt.positions.clamp(0, ej - 1)]
+    return state._replace(
+        frontier_pos=nxt.positions, frontier_count=nxt.count,
+        visited=visited, emitted=_set_drop(state.emitted, idx, valid),
+        emit_depth=_set_drop(state.emit_depth,
+                             torch.where(new, nxt.positions, ej),
+                             state.depth + 1),
+        overflow=state.overflow | ovf)
+
+
+@dataclasses.dataclass(frozen=True)
+class HybridStep(Operator):
+    """Direction-optimizing level: positional IndexJoin while the frontier
+    is small, dense push once it covers ``switch_frac`` of the vertices.
+    The branch is taken on the host count of the level's frontier.
+    ``expand_fn`` plugs a kernel into the sparse branch's IndexJoin."""
+
+    switch_frac: float = 0.05
+    expand_fn: Optional[Callable] = None
+
+    def step(self, ctx, state):
+        ej = _num_join(ctx)
+        nv = state.visited.shape[0]
+        cap = state.frontier_pos.shape[0]
+        threshold = max(1, int(nv * self.switch_frac))
+        frontier = PosBlock(state.frontier_pos, state.frontier_count)
+        fvalid = frontier.valid_mask()
+        if state.host.frontier < threshold:
+            targets = torch.where(
+                fvalid, _join_dst_at(ctx, frontier.positions), -1)
+            keep, visited = dedup_targets(targets, fvalid, state.visited)
+            targets = torch.where(keep, targets, -1)
+            epos, total, ovf = _expand_join(ctx, targets, keep, cap,
+                                            self.expand_fn)
+            nxt = PosBlock(epos, total)
+        else:
+            targets = _join_dst_at(ctx, frontier.positions)
+            # boolean OR (scatter-max): padded slots (clamped onto a real
+            # vertex) must never UNSET a vertex another slot reached
+            tgt_v = or_combine(torch.zeros_like(state.visited),
+                               targets.clamp(0, nv - 1), fvalid)
+            tgt_v = tgt_v & ~state.visited
+            visited = state.visited | tgt_v
+            hit = _hit_mask(ctx, tgt_v)
+            nxt = compact_mask(hit, cap, ej)
+            ovf = hit.sum(dtype=torch.int32) > cap
+        return _install_edge_frontier(ctx, state, nxt, visited, ovf)
+
+
+@dataclasses.dataclass(frozen=True)
+class HybridPullStep(Operator):
+    """The pull twin of :class:`HybridStep`'s dense branch, for positional
+    (edge-block) frontiers: rebuild the previous level's VERTEX set from
+    the frontier edges' join sources, bottom-up test the unvisited set
+    against it, then emit and compact exactly like the push branch, so a
+    :class:`DirectionSwitch` over (HybridStep, HybridPullStep) is
+    level-for-level state-identical to plain HybridStep.  ``expand_fn``
+    plugs in the ``frontier_pull`` kernel wrapper (the reference's twin
+    has no such slot and always runs the plain pull)."""
+
+    expand_fn: Optional[Callable] = None
+
+    def step(self, ctx, state):
+        ej = _num_join(ctx)
+        nv = state.visited.shape[0]
+        cap = state.frontier_pos.shape[0]
+        fvalid = PosBlock(state.frontier_pos, state.frontier_count
+                          ).valid_mask()
+        srcs = _join_src_at(ctx, state.frontier_pos)
+        prev_v = or_combine(torch.zeros_like(state.visited),
+                            srcs.clamp(0, nv - 1), fvalid)
+        tgt_v = _dense_pull(ctx, prev_v, state.visited, self.expand_fn)
+        hit = _hit_mask(ctx, tgt_v)
+        nxt = compact_mask(hit, cap, ej)
+        ovf = hit.sum(dtype=torch.int32) > cap
+        return _install_edge_frontier(ctx, state, nxt, state.visited | tgt_v,
+                                      ovf)
+
+
 @dataclasses.dataclass(frozen=True)
 class AppendUnionAll(Operator):
     """The recursive UNION ALL over positions: append the level's block to
@@ -304,6 +700,59 @@ class LateMaterialize:
                          state.depth, state.overflow, state.result_depth)
 
 
+@dataclasses.dataclass(frozen=True)
+class CompactEmitted:
+    """Dense-pipeline finisher: compact the emitted-edge mask into a
+    position block, then late-materialize (one ``ColumnTable.take``): the
+    dense plan keeps the positional contract."""
+
+    cols: Tuple[str, ...]
+
+    def finish(self, ctx, pipeline, state):
+        return _emit(ctx, pipeline.caps.result, self.cols, state,
+                     state.emitted, state.emit_depth)
+
+
+@dataclasses.dataclass(frozen=True)
+class DeferredEmit:
+    """Deferred-emission finisher (the diropt pipelines): the loop carried
+    only per-vertex depths, so the emitted-edge mask is DERIVED here in one
+    O(EJ) pass (a join edge is emitted iff its source vertex was discovered
+    strictly before the last executed level), then compacted and
+    late-materialized exactly like :class:`CompactEmitted` (identical row
+    set, order and depths)."""
+
+    cols: Tuple[str, ...]
+
+    def finish(self, ctx, pipeline, state):
+        vd = state.vertex_depth
+        nv = vd.shape[0]
+        src_depth = vd[ctx.join_src.clamp(0, nv - 1)]
+        if ctx.bidir:
+            src_depth = torch.cat([src_depth,
+                                   vd[ctx.join_dst.clamp(0, nv - 1)]])
+        emitted = (src_depth >= 0) & (src_depth < state.depth)
+        return _emit(ctx, pipeline.caps.result, self.cols, state, emitted,
+                     src_depth)
+
+
+def _emit(ctx: Context, cap_r: int, cols: Tuple[str, ...],
+          state: TraversalState, emitted: torch.Tensor,
+          edge_depth: torch.Tensor) -> BFSResult:
+    """The dense finishers' shared tail: (EJ,) emitted mask and per-edge
+    level -> compacted positions, one late gather, row depths."""
+    ej = _num_join(ctx)
+    blk = compact_mask(emitted, cap_r, ej)
+    pos_real = _to_real(ctx, blk.positions)
+    values = ctx.table.take(pos_real, cols)
+    overflow = state.overflow | (emitted.sum(dtype=torch.int32) > cap_r)
+    row_depths = torch.where(blk.valid_mask(),
+                             edge_depth[blk.positions.clamp(0, ej - 1)], -1)
+    dirs = state.level_dirs if state.level_dirs.shape[0] else None
+    return BFSResult(values, pos_real, blk.count, state.depth, overflow,
+                     row_depths, dirs)
+
+
 # ---------------------------------------------------------------------------
 # the pipeline + the fixed-point driver
 # ---------------------------------------------------------------------------
@@ -315,46 +764,91 @@ class Pipeline:
     name: str
     seed: Seed
     ops: Tuple[Operator, ...]
-    finisher: LateMaterialize
+    finisher: object                 # LateMaterialize | CompactEmitted | ...
     caps: EngineCaps
     max_depth: int
+    rep: str = "pos"                 # 'pos' | 'dense'
+    inclusive: bool = False          # loop while depth <= max_depth (dense)
+    tracks_emitted: bool = False     # carries the (EJ,) emitted-edge mask
+    tracks_vertex_depth: bool = False  # deferred emission: (V,) depths
+    tracks_switch: bool = False      # records per-level push/pull decisions
 
 
 def _initial_state(pipeline: Pipeline, ctx: Context, num_vertices: int
                    ) -> TraversalState:
     cap_f, cap_r = pipeline.caps.frontier, pipeline.caps.result
+    ej = _num_join(ctx)
     dev = ctx.join_src.device
+    dense = pipeline.rep == "dense"
+    track = pipeline.tracks_emitted
+    deferred = pipeline.tracks_vertex_depth
 
-    def i32(shape, fill):
-        return torch.full(shape, fill, dtype=torch.int32, device=dev)
+    def full(shape, fill, dtype=torch.int32):
+        return torch.full(shape, fill, dtype=dtype, device=dev)
 
+    def none(dtype=torch.int32):            # a zero-size placeholder
+        return torch.zeros((0,), dtype=dtype, device=dev)
+
+    # one 0-d zero serves every scalar: no operator writes a scalar in place
+    zero = full((), 0)
     return TraversalState(
-        frontier_pos=i32((cap_f,), _num_join(ctx)),
-        frontier_count=i32((), 0),
-        targets=i32((cap_f,), -1),
-        keep=torch.zeros((cap_f,), dtype=torch.bool, device=dev),
-        visited=torch.zeros((num_vertices,), dtype=torch.bool, device=dev),
-        result_pos=i32((cap_r,), ctx.table.num_rows),
-        result_depth=i32((cap_r,), -1),
-        result_count=i32((), 0),
-        depth=i32((), 0),
-        overflow=torch.zeros((), dtype=torch.bool, device=dev))
+        frontier_pos=none() if dense else full((cap_f,), ej),
+        frontier_count=zero,
+        # deferred pipelines carry ONLY the vertex-depth array: no target
+        # block, no dedup mask, no per-row result buffers in the loop
+        targets=none() if deferred else full((cap_f,), -1),
+        keep=none(torch.bool) if deferred else full((cap_f,), False,
+                                                    torch.bool),
+        frontier_bits=(full((num_vertices,), False, torch.bool)
+                       if dense and not deferred else none(torch.bool)),
+        emitted=full((ej,), False, torch.bool) if track else none(torch.bool),
+        emit_depth=full((ej,), -1) if track else none(),
+        visited=(none(torch.bool) if deferred
+                 else full((num_vertices,), False, torch.bool)),
+        result_pos=(full((cap_r,), ctx.table.num_rows)
+                    if pipeline.rep == "pos" and not track else none()),
+        result_depth=none() if track or deferred else full((cap_r,), -1),
+        result_count=zero,
+        depth=zero,
+        overflow=full((), False, torch.bool),
+        vertex_depth=full((num_vertices,), -1) if deferred else none(),
+        visited_count=zero,
+        level_dirs=(full((pipeline.max_depth + 2,), -1, torch.int8)
+                    if pipeline.tracks_switch else none(torch.int8)))
+
+
+def _host_counts(pipeline: Pipeline, state: TraversalState, depth: int
+                 ) -> HostCounts:
+    """The level's scalars on the host, in ONE device-to-host copy: the
+    frontier count, and for a switch pipeline also the discovered-vertex
+    count its predicate reads (the deferred steps keep it as a scalar, the
+    others pay a popcount of ``visited``)."""
+    if not pipeline.tracks_switch:
+        return HostCounts(depth, int(state.frontier_count.item()))
+    visited = (state.visited_count if state.vertex_depth.shape[0]
+               else state.visited.sum(dtype=torch.int32))
+    frontier, visited = torch.stack([state.frontier_count, visited]).tolist()
+    return HostCounts(depth, frontier, visited)
 
 
 def fixed_point(pipeline: Pipeline, ctx: Context, root: int,
                 num_vertices: int) -> BFSResult:
     """Run a pipeline to its fixed point: the operator steps composed in
     order, once per level, while the frontier is live and the depth bound
-    is not reached.  The loop reads ``frontier_count`` on the host once per
+    is not reached (``depth <= max_depth`` for the inclusive dense
+    pipelines).  The loop copies the level's scalars to the host once per
     level: one sync per level."""
     root = int(root)
     state = _initial_state(pipeline, ctx, num_vertices)
     state = pipeline.seed.init(ctx, state, root)
     for op in pipeline.ops:
         state = op.init(ctx, state, root)
-    for _ in range(pipeline.max_depth):
-        if int(state.frontier_count.item()) <= 0:
+    limit = pipeline.max_depth + (1 if pipeline.inclusive else 0)
+    for depth in range(limit):
+        host = _host_counts(pipeline, state, depth)
+        if host.frontier <= 0:
             break
+        state = state._replace(host=host)
         for op in pipeline.ops:
             state = op.step(ctx, state)
         state = state._replace(depth=state.depth + 1)

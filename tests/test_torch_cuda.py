@@ -18,6 +18,8 @@ from repro_torch.core.csr import build_csr, expand_frontier
 from repro_torch.core.engine import EngineCaps, RecursiveQuery, run_query
 from repro_torch.data.treegen import TreeSpec, make_edge_table
 from repro_torch.kernels.frontier_expand import ops as fe_ops
+from repro_torch.kernels.frontier_pull import ops as fp_ops
+from repro_torch.kernels.frontier_pull.ref import frontier_pull_ref
 from repro_torch.kernels.late_gather import ops as lg_ops
 from repro_torch.kernels.late_gather.ref import late_gather_ref
 
@@ -65,18 +67,44 @@ def test_frontier_expand_kernel_matches_plain(cuda, seed):
         assert torch.equal(g.cpu(), w)
 
 
+@pytest.mark.parametrize("seed", range(10))
+def test_frontier_pull_kernel_matches_plain(cuda, seed):
+    """Random graphs with ids outside [0, V) (clipped per entry), and an
+    empty edge list (a zero mask, no launch)."""
+    rng = np.random.default_rng(seed)
+    v = int(rng.integers(2, 300))
+    e = 0 if seed == 0 else int(rng.integers(1, 5000))
+    src = torch.from_numpy(rng.integers(-3, v + 3, e).astype(np.int32))
+    dst = torch.from_numpy(rng.integers(-3, v + 3, e).astype(np.int32))
+    frontier = torch.from_numpy(rng.random(v) < 0.3)
+    visited = torch.from_numpy(rng.random(v) < 0.4) | frontier
+    want = frontier_pull_ref(build_csr(dst, v), src, dst, frontier, visited)
+    before = fp_ops.LAUNCHES
+    got = fp_ops.frontier_pull_fused(build_csr(dst.to(cuda), v),
+                                     src.to(cuda), dst.to(cuda),
+                                     frontier.to(cuda), visited.to(cuda))
+    torch.cuda.synchronize()
+    assert fp_ops.LAUNCHES == before + (e > 0)
+    assert got.dtype == torch.bool and torch.equal(got.cpu(), want)
+
+
+ENGINES = ("precursive", "bitmap", "hybrid", "diropt", "diropt_hybrid")
+
+
 @pytest.mark.parametrize("direction", ["outbound", "inbound", "both"])
-def test_run_query_on_card_matches_cpu(cuda, direction):
+@pytest.mark.parametrize("engine", ENGINES)
+def test_run_query_on_card_matches_cpu(cuda, engine, direction):
     spec = TreeSpec(num_vertices=3000, height=10, payload_cols=2, seed=11)
     cols = make_edge_table(spec)
-    q = RecursiveQuery("precursive", 10, 2, EngineCaps(4096, 8192),
+    q = RecursiveQuery(engine, 10, 2, EngineCaps(4096, 8192),
                        direction=direction)
     for root in (0, 17, 2999):
         got = run_query(q, dataset_from_numpy(cols, 3000, cuda), root)
         want = run_query(q, dataset_from_numpy(cols, 3000, "cpu"), root)
         for field in ("positions", "count", "depth", "overflow",
-                      "row_depths"):
-            assert torch.equal(getattr(got, field).cpu(),
-                               getattr(want, field)), field
+                      "row_depths", "level_dirs"):
+            g, w = getattr(got, field), getattr(want, field)
+            assert (g is None and w is None) or torch.equal(g.cpu(), w), \
+                field
         for k in want.values:
             assert torch.equal(got.values[k].cpu(), want.values[k]), k

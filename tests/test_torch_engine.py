@@ -60,11 +60,18 @@ def port_query(q: RecursiveQuery) -> port.RecursiveQuery:
 
 
 def assert_same_result(got, want) -> None:
+    """Field for field, including ``level_dirs`` where the engine has it."""
     for field in ("positions", "count", "depth", "overflow", "row_depths"):
         g = getattr(got, field).numpy()
         w = np.asarray(getattr(want, field))
         assert g.dtype == w.dtype, field
         np.testing.assert_array_equal(g, w, err_msg=field)
+    if want.level_dirs is None:
+        assert got.level_dirs is None
+    else:
+        g, w = got.level_dirs.numpy(), np.asarray(want.level_dirs)
+        assert g.dtype == w.dtype
+        np.testing.assert_array_equal(g, w, err_msg="level_dirs")
     assert sorted(got.values) == sorted(want.values)
     for k, w in want.values.items():
         g, w = got.values[k].numpy(), np.asarray(w)
@@ -146,8 +153,11 @@ def test_kernel_plugged_pipeline_matches_reference(tree):
 
 
 def test_other_engines_name_their_slice():
-    q = port.RecursiveQuery("bitmap", 3, 0, port.EngineCaps(8, 8))
-    with pytest.raises(ValueError, match="direction-optimizing"):
+    q = port.RecursiveQuery("trecursive", 3, 0, port.EngineCaps(8, 8))
+    with pytest.raises(ValueError, match="other engines"):
+        port.build_plan(q)
+    q = port.RecursiveQuery("multiquery", 3, 0, port.EngineCaps(8, 8))
+    with pytest.raises(ValueError, match="MS-BFS"):
         port.build_plan(q)
     with pytest.raises(ValueError, match="unknown engine"):
         port.build_plan(port.RecursiveQuery("nope", 3, 0,

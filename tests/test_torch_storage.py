@@ -61,6 +61,20 @@ def test_build_csr_matches_reference(seed):
     same(got.perm, want.perm)
 
 
+@pytest.mark.parametrize("seed", range(3))
+def test_build_csr_out_of_range_sources_match_reference(seed):
+    """Sources in [-2V, 2V): negative ones count where a JAX index puts
+    them, the rest outside [0, V) are left out of ``indptr``; ``perm``
+    keeps every edge."""
+    rng = np.random.default_rng(seed)
+    v = int(rng.integers(3, 50))
+    src = rng.integers(-2 * v, 2 * v, 300).astype(np.int32)
+    want = jcsr.build_csr(jnp.asarray(src), v)
+    got = pcsr.build_csr(t(src), v)
+    same(got.indptr, want.indptr)
+    same(got.perm, want.perm)
+
+
 @pytest.mark.parametrize("capacity", [1, 7, 40, 64])
 def test_compact_mask_matches_reference(capacity):
     mask = np.random.default_rng(capacity).random(50) < 0.4
