@@ -9,20 +9,27 @@ Phases (any failure raises and the script exits non-zero):
 1. print the card's name and power limit; build the CUDA kernels with
    ``nvcc`` from ``src/repro_torch/csrc`` and time the build;
 2. hold each kernel against its plain PyTorch version on the card at the
-   main path's shapes (exact equality), and time the kernel, the plain
-   version and, where one exists, a single PyTorch library call;
-3. drive the two paths at full size on the repo's own deployment
+   main path's shapes (exact equality; ``spmm_segment`` also on two random
+   graphs with in-degree > 1 and on the tree's inbound view, whose vertex
+   0 owns 83,619 edges, within rtol = atol = 1e-5), and time the kernel,
+   the plain version and, where one exists, a single PyTorch library
+   call;
+3. drive three paths at full size on the repo's own deployment
    (``src/repro/configs/posdb_bfs.py``: 2^20-vertex tree of height 16,
-   8 payload columns, depth 16, result cap 2^20) with a per-level frontier
-   cap of 2^18, through ``run_query``: PRecursive for 10 requests, then
-   the dense and direction-optimizing engines (``bitmap``, ``hybrid``,
-   ``diropt``, ``diropt_hybrid``) for 4 requests each, and the two
-   direction-optimizing plans with the switch forced to pull.  Every
-   result must equal the port's CPU run bit for bit, ``diropt`` must equal
-   ``bitmap`` and ``diropt_hybrid`` ``hybrid`` row for row, root 0 must
-   equal the BFS oracle, and each path's kernel launch counters (zeroed
-   just before the path, read just after) must show it went through its
-   kernels; warm latencies and ``torch.profiler`` lines follow;
+   8 payload columns, depth 16, result cap 2^20, plus a float32 edge
+   weight column ``w`` uniform in [0.5, 2)) with a per-level frontier cap
+   of 2^18, through ``run_query``: PRecursive for 10 requests; the dense
+   and direction-optimizing engines (``bitmap``, ``hybrid``, ``diropt``,
+   ``diropt_hybrid``) for 4 requests each, and the two direction-
+   optimizing plans with the switch forced to pull; the weighted
+   ``precursive`` (11 requests) and ``bitmap`` (7) engines under the five
+   value semirings.  Every result must equal the port's CPU run bit for
+   bit (``vertex_values`` included), ``diropt`` must equal ``bitmap`` and
+   ``diropt_hybrid`` ``hybrid`` row for row, root 0 must equal the BFS
+   oracle (and, weighted, the path sums and products of the weights), and
+   each path's kernel launch counters (zeroed just before the path, read
+   just after) must show it went through its kernels; warm latencies and
+   ``torch.profiler`` lines follow;
 4. print one ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}``
    line last.
 
@@ -36,6 +43,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -61,6 +69,9 @@ from repro_torch.kernels.frontier_pull.ref import \
     frontier_pull_ref  # noqa: E402
 from repro_torch.kernels.late_gather import ops as lg_ops  # noqa: E402
 from repro_torch.kernels.late_gather.ref import late_gather_ref  # noqa: E402
+from repro_torch.kernels.spmm_segment import ops as spmm_ops  # noqa: E402
+from repro_torch.kernels.spmm_segment.ref import \
+    spmm_segment_ref  # noqa: E402
 
 # the posdb-bfs deployment (src/repro/configs/posdb_bfs.py), on one card:
 # frontier_cap is 2^18 instead of the config's per-shard 2^15, because the
@@ -71,9 +82,27 @@ CAPS = EngineCaps(frontier=1 << 18, result=1 << 20)
 ROOT_SEED = 1
 DEVICE = "cuda"                # the card
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
+FP32_OPS_PER_S = 67e12         # H100 SXM data sheet, float32 off the tensor
+#                                cores
 TIMING_REPS = 20
 DENSE_ENGINES = ("bitmap", "hybrid", "diropt", "diropt_hybrid")
 FORCE_PULL = dict(alpha=1e9, beta=1e9)
+SEMIRINGS = ("shortest_path", "aggregate_sum", "aggregate_max",
+             "aggregate_min", "aggregate_mul")
+WEIGHT_COL = "w"
+SPMM_TOL = dict(rtol=1e-5, atol=1e-5)    # tests/test_semiring.py's
+
+
+class Request(NamedTuple):
+    engine: str
+    direction: str
+    root: int
+    workload: str = "reach"
+
+    def __str__(self) -> str:
+        label = f"{self.engine} {self.direction} root {self.root}"
+        return label if self.workload == "reach" else \
+            f"{label} {self.workload}"
 
 
 def require(cond: bool, what: str) -> None:
@@ -108,8 +137,10 @@ def time_ms(fn, flush: torch.Tensor) -> float:
     return statistics.median(s.elapsed_time(e) for s, e in events)
 
 
-def bound_ms(nbytes: float) -> float:
-    return nbytes / HBM_BYTES_PER_S * 1e3
+def bound_ms(nbytes: float, fp32_ops: float = 0.0) -> float:
+    """The larger of the bytes over the memory rate and the float32
+    operations over the card's float32 rate."""
+    return max(nbytes / HBM_BYTES_PER_S, fp32_ops / FP32_OPS_PER_S) * 1e3
 
 
 def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -120,66 +151,99 @@ def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> float:
 # the requests and their checks
 # ---------------------------------------------------------------------------
 
-def make_requests(cols: dict, num_vertices: int
-                  ) -> list[tuple[str, str, int]]:
+def make_requests(cols: dict, num_vertices: int) -> list[Request]:
     """PRecursive: root 0, three depth-1 vertices and four seeded random
     roots outbound; the deepest vertex inbound and both ways."""
     children = cols["to"][cols["from"] == 0][:3]
-    rand = np.random.default_rng(ROOT_SEED).integers(0, num_vertices, 4)
-    out = [0, *children.tolist(), *rand.tolist()]
+    out = [0, *children.tolist(), *random_roots(num_vertices)]
     last = num_vertices - 1
-    return ([("precursive", "outbound", int(r)) for r in out]
-            + [("precursive", "inbound", last),
-               ("precursive", "both", last)])
+    return ([Request("precursive", "outbound", int(r)) for r in out]
+            + [Request("precursive", "inbound", last),
+               Request("precursive", "both", last)])
 
 
-def make_dense_requests(cols: dict, num_vertices: int
-                        ) -> list[tuple[str, str, int]]:
+def random_roots(num_vertices: int) -> list[int]:
+    return np.random.default_rng(ROOT_SEED).integers(
+        0, num_vertices, 4).tolist()
+
+
+def make_dense_requests(cols: dict, num_vertices: int) -> list[Request]:
     """Each dense engine: root 0 (the whole tree, both sides of the
     switch) and one depth-1 vertex outbound, the deepest vertex inbound
     and both ways."""
     child = int(cols["to"][cols["from"] == 0][0])
     last = num_vertices - 1
-    return [(engine, direction, root) for engine in DENSE_ENGINES
+    return [Request(engine, direction, root) for engine in DENSE_ENGINES
             for direction, root in (("outbound", 0), ("outbound", child),
                                     ("inbound", last), ("both", last))]
 
 
-def query(engine: str, direction: str = "outbound") -> RecursiveQuery:
+def make_weighted_requests(num_vertices: int) -> list[Request]:
+    """Weighted ``precursive``: root 0 outbound under each semiring,
+    shortest path from the deepest vertex inbound and both ways and from
+    the four random roots outbound.  Weighted ``bitmap``: root 0 outbound
+    under each semiring, shortest path and aggregate_sum from the deepest
+    vertex inbound.  The bitmap aggregate_sum requests run spmm_segment."""
+    last = num_vertices - 1
+    sp = "shortest_path"
+    return ([Request("precursive", "outbound", 0, s) for s in SEMIRINGS]
+            + [Request("precursive", "inbound", last, sp),
+               Request("precursive", "both", last, sp)]
+            + [Request("precursive", "outbound", r, sp)
+               for r in random_roots(num_vertices)]
+            + [Request("bitmap", "outbound", 0, s) for s in SEMIRINGS]
+            + [Request("bitmap", "inbound", last, sp),
+               Request("bitmap", "inbound", last, "aggregate_sum")])
+
+
+def query(engine: str, direction: str = "outbound",
+          workload: str = "reach") -> RecursiveQuery:
     return RecursiveQuery(engine, MAX_DEPTH, SPEC.payload_cols, CAPS,
-                          direction=direction)
+                          direction=direction, workload=workload,
+                          weight_col=None if workload == "reach"
+                          else WEIGHT_COL)
+
+
+def run_request(ds, req: Request):
+    return run_query(query(req.engine, req.direction, req.workload), ds,
+                     req.root)
 
 
 def run_requests(ds, requests) -> list:
-    return [run_query(query(engine, direction), ds, root)
-            for engine, direction, root in requests]
+    return [run_request(ds, req) for req in requests]
+
+
+KERNEL_OPS = {"frontier_expand": fe_ops, "late_gather": lg_ops,
+              "frontier_pull": fp_ops, "spmm_segment": spmm_ops}
 
 
 def reset_launches() -> None:
-    fe_ops.LAUNCHES = lg_ops.LAUNCHES = fp_ops.LAUNCHES = 0
+    for ops in KERNEL_OPS.values():
+        ops.LAUNCHES = 0
 
 
 def read_launches() -> dict:
     torch.cuda.synchronize()
-    return {"frontier_expand": fe_ops.LAUNCHES,
-            "late_gather": lg_ops.LAUNCHES,
-            "frontier_pull": fp_ops.LAUNCHES}
+    return {name: ops.LAUNCHES for name, ops in KERNEL_OPS.items()}
 
 
 def expected_launches(requests, results, num_vertices: int) -> dict:
     """The launches the card's run of ``requests`` must make, read off the
     CPU run's results: ``frontier_expand`` once per executed level of
-    PRecursive and per sparse (positional) push level of the hybrid
-    engines, ``frontier_pull`` once per pull level, both only outside the
-    fused ``both`` view (which has no kernel, as in the reference);
-    ``late_gather`` once per output column per request.  A hybrid level is
-    sparse when its frontier block, the rows first emitted at that level,
-    is below :func:`hybrid_threshold`."""
-    expand = pull = 0
-    for (engine, direction, _), r in zip(requests, results):
-        if direction == "both":
+    PRecursive (weighted or not) and per sparse (positional) push level of
+    the hybrid engines, ``frontier_pull`` once per pull level, both only
+    outside the fused ``both`` view (which has no kernel, as in the
+    reference); ``spmm_segment`` once per executed level of a ``bitmap``
+    aggregate_sum request; ``late_gather`` once per output column per
+    request.  A hybrid level is sparse when its frontier block, the rows
+    first emitted at that level, is below :func:`hybrid_threshold`."""
+    expand = pull = spmm = 0
+    for req, r in zip(requests, results):
+        engine, depth = req.engine, int(r.depth)
+        if req.workload == "aggregate_sum" and engine == "bitmap":
+            spmm += depth
+        if req.direction == "both":
             continue
-        depth = int(r.depth)
         if engine == "precursive":
             expand += depth
             continue
@@ -195,7 +259,7 @@ def expected_launches(requests, results, num_vertices: int) -> dict:
                 expand += 1
     n_cols = len(query("precursive").out_cols)
     return {"frontier_expand": expand, "late_gather": n_cols * len(requests),
-            "frontier_pull": pull}
+            "frontier_pull": pull, "spmm_segment": spmm}
 
 
 def hybrid_threshold(engine: str, num_vertices: int) -> int:
@@ -210,7 +274,7 @@ def hybrid_threshold(engine: str, num_vertices: int) -> int:
 def require_equal(a, b, label: str) -> None:
     """Field-for-field, bit-for-bit equality of two BFSResults."""
     for field in ("positions", "count", "depth", "overflow", "row_depths",
-                  "level_dirs"):
+                  "level_dirs", "vertex_values"):
         x, y = getattr(a, field), getattr(b, field)
         if x is None or y is None:
             require(x is None and y is None, f"{label}: field {field}")
@@ -414,8 +478,150 @@ def frontier_pull_phase(ds, frontier, visited, level, flush):
     }
 
 
-def profile_request(ds, engine: str, direction: str, root: int,
-                    warm_ms: float) -> dict:
+def spmm_case(x, src, dst, w, num_out: int, check: str, flush) -> dict:
+    """``spmm_segment`` against its plain version on the card, ``check``
+    ``exact``, ``close`` (SPMM_TOL) or ``scaled`` (within 1e-5 of each
+    row's sum of absolute terms, for rows of thousands of edges).  ``ms`` is
+    the call the engine makes each level (the kernel on edges already in
+    destination order); ``wrapper_ms`` adds the wrapper's stable sort;
+    ``library_ms`` is ``torch.sparse.mm`` of the (num_out x N) CSR matrix
+    of the live edges' weights, built outside the timed region."""
+    n, d = x.shape
+    seg = spmm_ops.segments(dst, num_out)
+    s_src, s_w = src[seg.order], w[seg.order]
+    got = spmm_ops.spmm_segment_sorted(x, s_src, seg.seg, s_w, seg.offsets)
+    via_wrapper = spmm_ops.spmm_segment(x, src, dst, w, num_out)
+    want = spmm_segment_ref(x, src, dst, w, num_out)
+    torch.cuda.synchronize()
+    label = f"spmm_segment N={n} E={src.shape[0]} D={d}"
+    require(torch.equal(got, via_wrapper), f"{label}: wrapper differs")
+    if check == "exact":
+        require(torch.equal(got, want), f"{label} differs from its plain "
+                                        f"version")
+    elif check == "close":
+        require(bool(torch.isclose(got, want, **SPMM_TOL).all()),
+                f"{label} differs from its plain version beyond "
+                f"{SPMM_TOL}")
+    else:
+        scale = spmm_segment_ref(x.abs(), src, dst, w.abs(), num_out)
+        require(bool(((got - want).abs() <= 1e-5 * scale + 1e-5).all()),
+                f"{label} differs from its plain version beyond 1e-5 of "
+                f"the rows' absolute sums")
+    live = (src >= 0) & (src < n) & (dst >= 0) & (dst < num_out)
+    n_live = int(live.sum())
+    rows = int(torch.unique(src[live]).numel())
+    sparse = torch.sparse_coo_tensor(
+        torch.stack([dst[live], src[live]]).long(), w[live],
+        (num_out, n)).coalesce().to_sparse_csr()
+    e = src.shape[0]
+    # the kernel's call: offsets and src in full, w and the x rows of the
+    # live edges (each distinct row once), the output written once
+    nbytes = (num_out + 1) * 4 + e * 4 + n_live * 4 + rows * d * 4 \
+        + num_out * d * 4
+    ops = 2.0 * n_live * d
+    return {
+        "max_abs_err": max_abs_err(got, want),
+        "ms": time_ms(lambda: spmm_ops.spmm_segment_sorted(
+            x, s_src, seg.seg, s_w, seg.offsets), flush),
+        "wrapper_ms": time_ms(lambda: spmm_ops.spmm_segment(
+            x, src, dst, w, num_out), flush),
+        "plain_ms": time_ms(lambda: spmm_segment_ref(x, src, dst, w,
+                                                     num_out), flush),
+        "library_ms": time_ms(lambda: torch.sparse.mm(sparse, x), flush),
+        "bound_ms": bound_ms(nbytes, ops),
+        "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S
+        >= ops / FP32_OPS_PER_S else "operations",
+        # the wrapper's call: src, dst and w read in full, the live x rows,
+        # the output, and the sort's own output (sorted keys, int64 order)
+        "wrapper_bound_ms": bound_ms(e * 12 + rows * d * 4 + num_out * d * 4
+                                     + e * 12, ops),
+        "shape": f"N={n} E={e} D={d} live={n_live} rows={rows} "
+                 f"out={num_out}",
+    }
+
+
+def spmm_main_input(r, cols: dict, num_vertices: int):
+    """The widest level of a root-0 ``bitmap`` aggregate_sum run, rebuilt
+    from its rows and values: the frontier is the sources of the level's
+    rows, ``x`` their values (zero elsewhere), and ``src`` is masked with
+    the padding V outside the frontier, as ``WeightedDenseStep`` masks it.
+    Returns (x (V, 1), src, dst, w, level) on the CPU."""
+    count = int(r.count)
+    pos = r.positions[:count].long()
+    depth = r.row_depths[:count]
+    level = int(torch.bincount(depth).argmax())
+    frm = torch.from_numpy(cols["from"])
+    frontier = torch.zeros((num_vertices,), dtype=torch.bool)
+    frontier[frm[pos[depth == level]].long()] = True
+    x = torch.where(frontier, r.vertex_values, 0.0)[:, None].contiguous()
+    src = torch.where(frontier[frm.long()], frm, num_vertices)
+    return (x, src, torch.from_numpy(cols["to"]),
+            torch.from_numpy(cols[WEIGHT_COL]), level)
+
+
+def spmm_random_input(seed: int, num_vertices: int, num_edges: int, d: int):
+    rng = np.random.default_rng(seed)
+    src = rng.integers(0, num_vertices, num_edges).astype(np.int32)
+    dst = rng.integers(0, num_vertices, num_edges).astype(np.int32)
+    w = rng.uniform(0.5, 2.0, num_edges).astype(np.float32)
+    x = rng.standard_normal((num_vertices, d), dtype=np.float32)
+    return (torch.from_numpy(x).to(DEVICE), torch.from_numpy(src).to(DEVICE),
+            torch.from_numpy(dst).to(DEVICE), torch.from_numpy(w).to(DEVICE))
+
+
+def spmm_segment_phase(r, cols: dict, num_vertices: int, flush):
+    x, src, dst, w, level = spmm_main_input(r, cols, num_vertices)
+    frm = torch.from_numpy(cols["from"])
+    x_random = torch.from_numpy(np.random.default_rng(4).standard_normal(
+        (num_vertices, 1), dtype=np.float32))
+    main = spmm_case(x.to(DEVICE), src.to(DEVICE), dst.to(DEVICE),
+                     w.to(DEVICE), num_vertices, "exact", flush)
+    main["shape"] += f" level={level}"
+    cases = {
+        "a": main,
+        "b": spmm_case(*spmm_random_input(2, 1 << 20, 1 << 22, 1), 1 << 20,
+                       "close", flush),
+        "c": spmm_case(*spmm_random_input(3, 1 << 16, 1 << 18, 128),
+                       1 << 16, "close", flush),
+        # the inbound view: every edge live, grouped by its `from` vertex
+        "d": spmm_case(x_random.to(DEVICE), dst.to(DEVICE),
+                       frm.to(DEVICE), w.to(DEVICE), num_vertices, "scaled",
+                       flush),
+    }
+    entry = {
+        "name": "spmm_segment", "route": "cuda",
+        "source": "src/repro_torch/csrc/spmm_segment.cu",
+        "replaces": "src/repro/kernels/spmm_segment/spmm_segment.py:43",
+        **main,
+    }
+    return entry, cases
+
+
+def value_oracle(levels: list, cols: dict, num_vertices: int
+                 ) -> dict[str, np.ndarray]:
+    """Root 0's vertex values on the tree, from ``bfs_reference``'s levels:
+    the sum of the weights along each vertex's root path (shortest_path)
+    and their product (the four aggregates coincide on a tree), both
+    accumulated root-down in float32, as the engines do; the identity where
+    a vertex is not reached."""
+    frm, to, w = cols["from"], cols["to"], cols[WEIGHT_COL]
+    total = np.full(num_vertices, np.inf, np.float32)
+    prod = np.full(num_vertices, np.nan, np.float32)
+    total[0], prod[0] = 0.0, 1.0
+    for level in levels:
+        p = np.fromiter(level, np.int64)
+        total[to[p]] = total[frm[p]] + w[p]
+        prod[to[p]] = prod[frm[p]] * w[p]
+    reached = ~np.isnan(prod)
+    identity = {"aggregate_sum": 0.0, "aggregate_max": -np.inf,
+                "aggregate_min": np.inf, "aggregate_mul": 1.0}
+    out = {"shortest_path": total}
+    for name, ident in identity.items():
+        out[name] = np.where(reached, prod, np.float32(ident))
+    return out
+
+
+def profile_request(ds, req: Request, warm_ms: float) -> dict:
     """Where one warm request's time goes: device time per kernel from
     ``torch.profiler``, and the device's idle share against the request's
     unprofiled warm latency ``warm_ms``."""
@@ -424,7 +630,7 @@ def profile_request(ds, engine: str, direction: str, root: int,
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        run_query(query(engine, direction), ds, root)
+        run_request(ds, req)
         torch.cuda.synchronize()
     # device-side events only (kernels, copies, fills): the host ops that
     # launched them carry the same time again
@@ -434,7 +640,7 @@ def profile_request(ds, engine: str, direction: str, root: int,
     top = sorted(kernels, key=lambda e: e.self_device_time_total,
                  reverse=True)[:8]
     return {
-        "request": f"{engine} {direction} root {root}", "warm_ms": warm_ms,
+        "request": str(req), "warm_ms": warm_ms,
         "device_ms": device_ms,
         "idle_share": 1 - device_ms / warm_ms if device_ms else None,
         "device_launches": sum(e.count for e in kernels),
@@ -443,28 +649,32 @@ def profile_request(ds, engine: str, direction: str, root: int,
     }
 
 
-def warm_latency_ms(ds, engine: str, direction: str, root: int) -> float:
+def warm_latency_ms(ds, req: Request) -> float:
     """Median of 3 warm runs, host clock around the request and a sync."""
     ms = []
     for _ in range(3):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        run_query(query(engine, direction), ds, root)
+        run_request(ds, req)
         torch.cuda.synchronize()
         ms.append((time.perf_counter() - t0) * 1e3)
     return statistics.median(ms)
 
 
 def check_path(label, requests, got, expected, launches, want_launches,
-               levels) -> None:
+               levels, values) -> None:
     """One path's results against the CPU run, its root-0 rows against
-    the BFS oracle, and its launch counts against the CPU run's levels."""
-    for (engine, direction, root), r, want in zip(requests, got, expected):
-        name = f"{engine} {direction} root {root}"
-        check_result_shape(r, CAPS, name)
-        require_equal(r, want, name)
-        if direction == "outbound" and root == 0:
-            check_root0(r, levels, SPEC, name)
+    the BFS oracle (and its root-0 vertex values against ``values``), and
+    its launch counts against the CPU run's levels."""
+    for req, r, want in zip(requests, got, expected):
+        check_result_shape(r, CAPS, str(req))
+        require_equal(r, want, str(req))
+        if req.direction == "outbound" and req.root == 0:
+            check_root0(r, levels, SPEC, str(req))
+            if req.workload != "reach":
+                require(torch.equal(r.vertex_values.cpu(), torch.from_numpy(
+                    values[req.workload])),
+                    f"{req}: vertex values differ from the path oracle")
     for kernel, n in want_launches.items():
         require(launches[kernel] == n,
                 f"{label} path: {kernel} launched {launches[kernel]} times, "
@@ -493,9 +703,12 @@ def main() -> None:
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
 
-    # data: the same numpy tree on the card and on the CPU
+    # data: the same numpy tree on the card and on the CPU, with the edge
+    # weights made as benchmarks/exp_weighted.py makes them
     t0 = time.perf_counter()
     cols = make_edge_table(SPEC)
+    cols[WEIGHT_COL] = np.random.default_rng(SPEC.seed + 1).uniform(
+        0.5, 2.0, SPEC.num_edges).astype(np.float32)
     ds = dataset_from_numpy(cols, SPEC.num_vertices, DEVICE)
     ds_cpu = dataset_from_numpy(cols, SPEC.num_vertices, "cpu")
     torch.cuda.synchronize()
@@ -504,8 +717,10 @@ def main() -> None:
           f"the card, {time.perf_counter() - t0:.3f} s")
     levels = bfs_reference(cols["from"], cols["to"], 0, MAX_DEPTH,
                            SPEC.num_vertices)
+    values = value_oracle(levels, cols, SPEC.num_vertices)
     requests = make_requests(cols, SPEC.num_vertices)
     dense_requests = make_dense_requests(cols, SPEC.num_vertices)
+    weighted_requests = make_weighted_requests(SPEC.num_vertices)
     out_cols = query("precursive").out_cols
     forced_plans = {   # (expand_fn, pull_fn) -> the plan, pull forced
         "diropt": lambda expand_fn=None, pull_fn=None: diropt_plan(
@@ -520,9 +735,12 @@ def main() -> None:
     expected_forced = {name: execute(make(), ds_cpu.context(), 0,
                                      SPEC.num_vertices)
                        for name, make in forced_plans.items()}
+    t1 = time.perf_counter()
+    expected_weighted = run_requests(ds_cpu, weighted_requests)
     print(f"cpu reference: {len(requests) + len(dense_requests)} requests "
-          f"and {len(forced_plans)} forced-pull runs in "
-          f"{time.perf_counter() - t0:.3f} s (host clock)")
+          f"and {len(forced_plans)} forced-pull runs in {t1 - t0:.3f} s, "
+          f"{len(weighted_requests)} weighted requests in "
+          f"{time.perf_counter() - t1:.3f} s (host clock)")
 
     # phase 2: each kernel against its plain version on the card
     flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device=DEVICE)
@@ -539,33 +757,41 @@ def main() -> None:
     fp = frontier_pull_phase(ds, *pull_input(diropt_root0, cols,
                                              SPEC.num_vertices), flush)
     print(f"frontier_pull input: {fp['shape']}")
+    bitmap_sum0 = expected_weighted[weighted_requests.index(
+        Request("bitmap", "outbound", 0, "aggregate_sum"))]
+    sp, sp_cases = spmm_segment_phase(bitmap_sum0, cols, SPEC.num_vertices,
+                                      flush)
+    print("spmm_segment cases: " + json.dumps(sp_cases))
     kernels = {"frontier_expand": fe, "late_gather": lg,
-               "frontier_pull": fp}
+               "frontier_pull": fp, "spmm_segment": sp}
 
     # phase 3: each path at full size; the counters see only that path
     torch.cuda.reset_peak_memory_stats()
     by_path = {}
     paths = (("precursive", requests, expected),
-             ("dense", dense_requests, expected_dense))
+             ("dense", dense_requests, expected_dense),
+             ("weighted", weighted_requests, expected_weighted))
     got = {}
     for label, reqs, want in paths:
         reset_launches()
         got[label] = run_requests(ds, reqs)
         by_path[label] = read_launches()
         check_path(label, reqs, got[label], want, by_path[label],
-                   expected_launches(reqs, want, SPEC.num_vertices), levels)
+                   expected_launches(reqs, want, SPEC.num_vertices), levels,
+                   values)
     peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
     for name, entry in kernels.items():
         entry["launches"] = sum(n[name] for n in by_path.values())
         entry["launches_by_path"] = {p: n[name] for p, n in by_path.items()}
         require(entry["launches"] > 0, f"{name} was never launched")
+    require(by_path["weighted"]["spmm_segment"] > 0,
+            "the weighted path never launched spmm_segment")
     dense_got = dict(zip(dense_requests, got["dense"]))
-    for (engine, direction, root), r in dense_got.items():
-        if engine in PUSH_COUNTERPART:
-            require_same_rows(r, dense_got[PUSH_COUNTERPART[engine],
-                                           direction, root],
-                              f"{engine} {direction} root {root}")
-    root0_pulls = sum(1 for d in dense_got["diropt", "outbound", 0]
+    for req, r in dense_got.items():
+        if req.engine in PUSH_COUNTERPART:
+            twin = req._replace(engine=PUSH_COUNTERPART[req.engine])
+            require_same_rows(r, dense_got[twin], str(req))
+    root0_pulls = sum(1 for d in dense_got[Request("diropt", "outbound", 0)]
                       .level_dirs.tolist() if d == 1)
     require(root0_pulls >= 2, f"diropt root 0 pulled {root0_pulls} levels")
 
@@ -583,38 +809,42 @@ def main() -> None:
         require(pulls == int(r.depth),
                 f"{label}: frontier_pull launched {pulls} times for "
                 f"{int(r.depth)} levels")
-        require_same_rows(r, dense_got[PUSH_COUNTERPART[name], "outbound",
-                                       0], label)
+        require_same_rows(r, dense_got[Request(PUSH_COUNTERPART[name],
+                                               "outbound", 0)], label)
         print(f"{label}: {int(r.depth)} pull levels, equal to the CPU run "
               f"and to {PUSH_COUNTERPART[name]}")
 
     warm = {}
-    for (engine, direction, root), r in zip(requests + dense_requests,
-                                            got["precursive"]
-                                            + got["dense"]):
-        if engine != "precursive" and (direction, root) != ("outbound", 0):
+    all_requests = requests + dense_requests + weighted_requests
+    for req, r in zip(all_requests, got["precursive"] + got["dense"]
+                      + got["weighted"]):
+        if req.workload == "reach" and req.engine != "precursive" and \
+                (req.direction, req.root) != ("outbound", 0):
             continue
-        key = engine, direction, root
-        warm[key] = warm_latency_ms(ds, *key)
+        warm[req] = warm_latency_ms(ds, req)
         dirs = ("" if r.level_dirs is None else
                 f" level_dirs {r.level_dirs[:int(r.depth)].tolist()}")
-        print(f"request {engine} {direction} root {root}: count "
-              f"{int(r.count)} depth {int(r.depth)} overflow "
-              f"{bool(r.overflow)} warm latency {warm[key]:.3f} ms "
+        print(f"request {req}: count {int(r.count)} depth {int(r.depth)} "
+              f"overflow {bool(r.overflow)} warm latency {warm[req]:.3f} ms "
               f"(median of 3, host clock){dirs}")
-    print(f"main path: {len(requests) + len(dense_requests)} requests "
-          f"equal to the CPU run; peak device memory {peak_mb:.1f} MiB")
-    # every engine's root 0 (PERF.md's limit reads these), and the fused
-    # view's widest PRecursive request
-    for key in [("precursive", "outbound", 0),
-                ("precursive", "both", SPEC.num_vertices - 1),
-                *((engine, "outbound", 0) for engine in DENSE_ENGINES)]:
-        print("profile: " + json.dumps(profile_request(ds, *key,
-                                                       warm[key])))
+    print(f"main path: {len(all_requests)} requests equal to the CPU run; "
+          f"peak device memory {peak_mb:.1f} MiB")
+    # every engine's root 0 (PERF.md's limit reads these), the fused view's
+    # widest PRecursive request, the two weighted paths' root 0, and the
+    # inbound aggregate_sum whose kernel rows are skewed (vertex 0 owns
+    # 83,619 inbound edges)
+    for req in [Request("precursive", "outbound", 0),
+                Request("precursive", "both", SPEC.num_vertices - 1),
+                *(Request(engine, "outbound", 0) for engine in DENSE_ENGINES),
+                Request("precursive", "outbound", 0, "shortest_path"),
+                Request("bitmap", "outbound", 0, "aggregate_sum"),
+                Request("bitmap", "inbound", SPEC.num_vertices - 1,
+                        "aggregate_sum")]:
+        print("profile: " + json.dumps(profile_request(ds, req, warm[req])))
 
     print(f"script: {time.perf_counter() - t_start:.3f} s from the build "
           f"on (host clock)")
-    print(json.dumps({"kernels": [fe, lg, fp]}))
+    print(json.dumps({"kernels": [fe, lg, fp, sp]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": device_name,
         "count": torch.cuda.device_count()}}))

@@ -13,10 +13,14 @@ BFS, as operator-pipeline compositions run by the same
 * ``diropt_hybrid`` — DirectionSwitch(HybridStep | HybridPullStep),
   row-for-row equal to ``hybrid``.
 
+* ``bitmap`` under a value semiring — Seed(dense) → WeightedDenseStep,
+  finished by CompactEmitted with the (V,) value plane.
+
 ``expand_fn`` plugs the ``frontier_expand`` kernel wrapper into the sparse
-IndexJoin and ``pull_fn`` the ``frontier_pull`` kernel wrapper into the
-pull steps; neither changes a result.  The weighted and multi-query plans
-come with their own slices.
+IndexJoin, ``pull_fn`` the ``frontier_pull`` kernel wrapper into the pull
+steps and ``spmm_fn`` the ``spmm_segment`` kernel wrapper into the dense
+(sum, ×) combine; none changes a result beyond float summation order.
+The multi-query plan comes with its own slice.
 """
 from __future__ import annotations
 
@@ -26,11 +30,13 @@ from .csr import CSRIndex
 from .operators import (BFSResult, CompactEmitted, Context, DeferredEmit,
                         DenseBitmapStep, DirectionSwitch, EngineCaps,
                         HybridPullStep, HybridStep, Pipeline, PullStep, Seed,
-                        bitmap_level, check_direction, execute)
+                        WeightedDenseStep, bitmap_level, check_direction,
+                        execute)
 from .table import ColumnTable
 
 __all__ = ["bitmap_bfs", "hybrid_bfs", "bitmap_level", "bitmap_plan",
-           "hybrid_plan", "diropt_plan", "diropt_hybrid_plan"]
+           "hybrid_plan", "diropt_plan", "diropt_hybrid_plan",
+           "weighted_bitmap_plan"]
 
 
 def bitmap_plan(caps: EngineCaps, max_depth: int,
@@ -46,6 +52,28 @@ def bitmap_plan(caps: EngineCaps, max_depth: int,
         ops=(DenseBitmapStep(),),
         finisher=CompactEmitted(tuple(out_cols)),
         caps=caps, max_depth=max_depth, inclusive=True, tracks_emitted=True)
+
+
+def weighted_bitmap_plan(caps: EngineCaps, max_depth: int,
+                         out_cols: tuple[str, ...], semiring: str,
+                         direction: str = "outbound",
+                         spmm_fn: Optional[Callable] = None) -> Pipeline:
+    """Dense-frontier traversal under a value semiring: per level one ⊗
+    over the full edge list and one ⊕-scatter into the (V,) value plane
+    (:class:`WeightedDenseStep`; ``spmm_fn`` routes the (sum, ×) combine
+    through the ``spmm_segment`` kernel).  Single-direction views only: the
+    fused bidirectional join space has no dense weighted step."""
+    check_direction(direction)
+    if direction == "both":
+        raise ValueError("the dense weighted step is single-direction; "
+                         "use the positional weighted engine for 'both'")
+    return Pipeline(
+        name="BitmapWeighted", rep="dense",
+        seed=Seed(kind="dense", semiring=semiring),
+        ops=(WeightedDenseStep(semiring=semiring, spmm_fn=spmm_fn),),
+        finisher=CompactEmitted(tuple(out_cols)),
+        caps=caps, max_depth=max_depth, inclusive=True, tracks_emitted=True,
+        semiring=semiring)
 
 
 def hybrid_plan(caps: EngineCaps, max_depth: int,

@@ -18,6 +18,10 @@ driver.  The operators ported so far:
 ``HybridStep``       positional IndexJoin while the frontier is small,
                      dense push above a fraction of the vertices
 ``HybridPullStep``   the bottom-up twin of HybridStep's dense branch
+``WeightedExpand``   the positional weighted level: per-vertex ⊕-combine,
+                     winner select and IndexJoin in one step
+``WeightedDenseStep`` the dense weighted level: ⊗ over the edge list, one
+                     ⊕-scatter into the (V,) level plane
 ``AppendUnionAll``   the recursive UNION ALL: append the level block to the
                      working result, tagging each row with its BFS level
 ``LateMaterialize``  Fig. 4's single post-fixed-point Materialize
@@ -31,7 +35,9 @@ Frontier representation per pipeline (``Pipeline.rep``): ``'pos'`` — a
 block of edge positions (PRecursive, hybrid); ``'dense'`` — a boolean
 vertex bitmap (bitmap) or, with deferred emission, the per-vertex depth
 array (diropt).  State a pipeline does not use is a zero-size placeholder,
-as in the reference.
+as in the reference; the semiring value plane (``Pipeline.semiring`` other
+than ``'reach'``) adds a float32 frontier value and a (V,) per-vertex
+accumulator, zero-size for ``reach``, so the boolean paths are unchanged.
 
 Direction: the join view (``ctx.join_src``/``ctx.join_dst`` and the CSR
 over ``join_src``) decides it.  ``outbound`` uses (from, to); ``inbound``
@@ -57,16 +63,19 @@ import numpy as np
 import torch
 
 from ..kernels.frontier_pull.ref import frontier_pull_ref
+from ..kernels.spmm_segment.ops import segments
 from .csr import CSRIndex, expand_frontier, expand_frontier_both
 from .positions import PosBlock, append_block, compact_mask
-from .semiring import or_combine
+from .semiring import (elem_combine, get_semiring, or_combine, propagate,
+                       scatter_combine)
 from .table import ColumnTable
 
 __all__ = [
     "DIRECTIONS", "check_direction", "EngineCaps", "BFSResult", "Context",
     "HostCounts", "TraversalState", "Operator", "Seed", "ReadTargets",
     "VisitedDedup", "CSRIndexJoin", "DenseBitmapStep", "PullStep",
-    "DirectionSwitch", "HybridStep", "HybridPullStep", "AppendUnionAll",
+    "DirectionSwitch", "HybridStep", "HybridPullStep", "WeightedExpand",
+    "WeightedDenseStep", "AppendUnionAll",
     "LateMaterialize", "CompactEmitted", "DeferredEmit", "Pipeline",
     "fixed_point", "execute", "dedup_targets", "bitmap_level",
 ]
@@ -96,6 +105,8 @@ class BFSResult(NamedTuple):
     row_depths: Optional[torch.Tensor] = None   # (result_cap,) int32 level
     level_dirs: Optional[torch.Tensor] = None   # (L,) int8 per-level
     #   decision of a DirectionSwitch pipeline (-1 unused, 0 push, 1 pull)
+    vertex_values: Optional[torch.Tensor] = None  # (V,) float32 semiring
+    #   value plane of a weighted pipeline (None for the boolean reach)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -106,7 +117,9 @@ class Context:
     CSR of the join view (groups join edges by ``join_dst``; the pull
     operators walk it); ``bidir=True`` selects the fused bidirectional
     view for ``direction='both'`` with ``both_indptr`` the merged out+in
-    indptr."""
+    indptr.  ``edge_weights`` is the (E,) float32 ⊗ weight per edge in
+    real position order (shared by both orientations of the fused view);
+    None for unweighted traffic, which traverses with all-ones."""
 
     table: ColumnTable
     csr: Optional[CSRIndex]
@@ -115,6 +128,7 @@ class Context:
     rcsr: Optional[CSRIndex] = None
     both_indptr: Optional[torch.Tensor] = None
     bidir: bool = False
+    edge_weights: Optional[torch.Tensor] = None
 
 
 class HostCounts(NamedTuple):
@@ -152,7 +166,15 @@ class TraversalState(NamedTuple):
     #   (kept by the deferred steps so the switch reads no popcount)
     level_dirs: torch.Tensor       # (L,) int8 per-level switch decision
     #   (-1 = level not executed, 0 = push, 1 = pull)
+    frontier_val: torch.Tensor     # weighted value plane of the frontier:
+    #   (F,) value arriving along each frontier edge (positional rep) or
+    #   (V,) per-vertex level values (dense rep); zero-size for 'reach'
+    vertex_val: torch.Tensor       # (V,) float32 ⊕-accumulated value per
+    #   vertex (semiring identity = unreached); zero-size for 'reach'
     host: HostCounts = HostCounts()   # this level's scalars on the host
+    segments: Optional[Tuple[torch.Tensor, ...]] = None   # the dense
+    #   weighted step's edges in destination order, (src, dst, weight,
+    #   offsets), sorted once per request when a kernel is plugged in
 
 
 # ---------------------------------------------------------------------------
@@ -236,6 +258,25 @@ def _hit_mask(ctx: Context, frontier_v: torch.Tensor) -> torch.Tensor:
         return frontier_v[ctx.join_src.clamp(0, nv - 1)]
     return torch.cat([frontier_v[ctx.join_src.clamp(0, nv - 1)],
                       frontier_v[ctx.join_dst.clamp(0, nv - 1)]])
+
+
+def _edge_weights(ctx: Context) -> torch.Tensor:
+    """The (E,) ⊗ weight of every real edge: the weight column, or all-ones
+    for a weightless context (reach-compatible)."""
+    if ctx.edge_weights is None:
+        return torch.ones((ctx.join_src.shape[0],), dtype=torch.float32,
+                          device=ctx.join_src.device)
+    return ctx.edge_weights
+
+
+def _edge_weight_at(ctx: Context, pos: torch.Tensor) -> torch.Tensor:
+    """Per-edge ⊗ weight gathered at join-space positions (callers mask
+    invalid lanes themselves).  Weights live in real position order, so the
+    fused view's backward copy reads the same weight as its edge."""
+    if ctx.edge_weights is None:
+        return torch.ones(pos.shape, dtype=torch.float32, device=pos.device)
+    e = ctx.edge_weights.shape[0]
+    return ctx.edge_weights[_to_real(ctx, pos).clamp(0, e - 1)]
 
 
 def _set_drop(arr: torch.Tensor, idx: torch.Tensor, vals) -> torch.Tensor:
@@ -364,12 +405,49 @@ class Seed(Operator):
     kind='dense' — the root bit in a dense vertex bitmap.
     A deferred-emission pipeline (one that carries ``vertex_depth``) seeds
     the root's depth 0 instead of any bitmap.  ``mark_emitted`` seeds the
-    emitted-edge mask of the positional pipelines that carry one."""
+    emitted-edge mask of the positional pipelines that carry one.
+    ``semiring != 'reach'`` also seeds the value plane: the root's vertex
+    value is the semiring's seed value and (edge kind) each seed edge
+    carries seed ⊗ weight."""
 
     kind: str = "edges"
     mark_emitted: bool = False
+    semiring: str = "reach"
+
+    def _init_weighted(self, ctx, state, root):
+        sr = get_semiring(self.semiring)
+        nv = state.visited.shape[0]
+        r = min(max(root, 0), nv - 1)
+        visited = state.visited.clone()
+        visited[r] = True
+        vertex_val = state.vertex_val.clone()
+        vertex_val[r] = sr.seed_value
+        if self.kind == "dense":
+            bits = torch.zeros_like(visited)
+            bits[r] = True
+            fval = torch.full((nv,), sr.identity, dtype=torch.float32,
+                              device=visited.device)
+            fval[r] = sr.seed_value
+            return state._replace(frontier_bits=bits, visited=visited,
+                                  vertex_val=vertex_val, frontier_val=fval,
+                                  frontier_count=torch.ones_like(
+                                      state.frontier_count))
+        ej = _num_join(ctx)
+        cap = state.frontier_pos.shape[0]
+        blk = compact_mask(_seed_mask(ctx, root), cap, ej)
+        seed = torch.tensor(sr.seed_value, dtype=torch.float32,
+                            device=visited.device)
+        fval = torch.where(blk.valid_mask(),
+                           propagate(sr, seed,
+                                     _edge_weight_at(ctx, blk.positions)),
+                           sr.identity)
+        return state._replace(frontier_pos=blk.positions,
+                              frontier_count=blk.count, visited=visited,
+                              vertex_val=vertex_val, frontier_val=fval)
 
     def init(self, ctx, state, root):
+        if self.semiring != "reach":
+            return self._init_weighted(ctx, state, root)
         if state.vertex_depth.shape[0]:
             # deferred emission: the per-vertex depth array IS the visited
             # set and the frontier (no separate bitmaps)
@@ -662,6 +740,161 @@ class HybridPullStep(Operator):
                                       ovf)
 
 
+def _level_plane(sr, nv: int, idx: torch.Tensor, vals: torch.Tensor
+                 ) -> torch.Tensor:
+    """The (V,) level plane: the arrivals ``vals`` ⊕-combined per target
+    vertex ``idx`` (``nv`` drops a lane), the identity where none
+    arrived."""
+    return scatter_combine(sr, torch.full((nv,), sr.identity,
+                                          dtype=torch.float32,
+                                          device=vals.device), idx, vals)
+
+
+def _fold_level(sr, lvl: torch.Tensor, idx: torch.Tensor,
+                valid: torch.Tensor, vertex_val: torch.Tensor
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """⊕-fold the level plane into the accumulator of the vertices that
+    received an arrival (``idx`` where ``valid``).  Returns (received,
+    vertex_val)."""
+    nv = vertex_val.shape[0]
+    received = or_combine(torch.zeros((nv,), dtype=torch.bool,
+                                      device=lvl.device), idx, valid)
+    return received, torch.where(received,
+                                 elem_combine(sr, vertex_val, lvl),
+                                 vertex_val)
+
+
+def _combine_arrivals(ctx: Context, sr, state: TraversalState,
+                      slots: torch.Tensor):
+    """The positional frontier's arrivals (``slots`` = arange(F))
+    ⊕-combined per target vertex and folded into the accumulator.  Returns
+    (valid, targets, clamped targets, level plane, vertex_val)."""
+    nv = state.vertex_val.shape[0]
+    valid = slots < state.frontier_count
+    t = _join_dst_at(ctx, state.frontier_pos)
+    safe = t.clamp(0, nv - 1)
+    idx = torch.where(valid, safe, nv)
+    lvl = _level_plane(sr, nv, idx, state.frontier_val)
+    _, new_vv = _fold_level(sr, lvl, idx, valid, state.vertex_val)
+    return valid, t, safe, lvl, new_vv
+
+
+@dataclasses.dataclass(frozen=True)
+class WeightedExpand(Operator):
+    """The positional weighted level: one fused ⊗-propagate / ⊕-combine /
+    winner-select / IndexJoin step.
+
+    Each frontier entry is a join-space edge position carrying the value
+    that arrives along it (``frontier_val``).  The step ⊕-combines the
+    arrivals per target vertex into the level plane, folds it into the
+    per-vertex accumulator, picks ONE expansion slot per active vertex with
+    the scatter-argmin ticket of :func:`dedup_targets` (⊗ distributes over
+    ⊕, so expanding the combined value once equals expanding every path),
+    and expands the winners through the CSR join index.  Improving
+    semirings (``shortest_path``) re-expand only strictly improved
+    vertices, so the driver's ``frontier_count > 0`` test is value
+    stabilization; walk semirings re-expand every receiver.  ``expand_fn``
+    plugs a kernel into the IndexJoin (the reference's operator has no such
+    slot; the expansion is integer, so the result is the same)."""
+
+    semiring: str
+    expand_fn: Optional[Callable] = None
+
+    def step(self, ctx, state):
+        sr = get_semiring(self.semiring)
+        cap = state.frontier_pos.shape[0]
+        nv = state.vertex_val.shape[0]
+        slots = torch.arange(cap, dtype=torch.int32,
+                             device=state.frontier_pos.device)
+        valid, t, safe, lvl, new_vv = _combine_arrivals(ctx, sr, state,
+                                                        slots)
+        if sr.improving:                 # frontier = strictly improved
+            eligible = valid & (lvl < state.vertex_val)[safe]
+        else:                            # frontier = every receiver
+            eligible = valid
+        ticket = torch.full((nv + 1,), cap, dtype=torch.int32,
+                            device=slots.device)
+        ticket.scatter_reduce_(0, torch.where(eligible, safe, nv).long(),
+                               torch.where(eligible, slots, cap), "amin")
+        winner = eligible & (ticket[safe] == slots)
+        targets = torch.where(winner, t, -1)
+        epos, total, ovf = _expand_join(ctx, targets, winner, cap,
+                                        self.expand_fn)
+        sval = lvl[_join_src_at(ctx, epos).clamp(0, nv - 1)]
+        fval = torch.where(slots < total,
+                           propagate(sr, sval, _edge_weight_at(ctx, epos)),
+                           sr.identity)
+        return state._replace(frontier_pos=epos, frontier_count=total,
+                              frontier_val=fval, vertex_val=new_vv,
+                              targets=targets, keep=winner,
+                              overflow=state.overflow | ovf)
+
+
+@dataclasses.dataclass(frozen=True)
+class WeightedDenseStep(Operator):
+    """The dense weighted level: ⊗ over the full edge list, then one
+    ⊕-scatter into the (V,) level plane (the weighted generalization of
+    :class:`DenseBitmapStep`'s boolean SpMV).
+
+    For the (sum, ×) semiring that scatter IS the gather-scale-segment-sum
+    of ``spmm_segment``: ``spmm_fn`` plugs its kernel wrapper
+    (``spmm_segment_sorted``) in, inactive edges padded with the kernel's
+    own ``src = V``.  The edges' destination order is fixed, so ``init``
+    sorts them ONCE per request (``state.segments``) and each level only
+    masks the sorted sources.  Every other ⊕, and a step without a kernel,
+    uses :func:`scatter_combine`.  Single-direction views only.
+
+    Where the reference drops an edge outside the frontier from its
+    scatters, here it scatters the ⊕-identity (or ``False``) onto its own
+    target, as :class:`DenseBitmapStep` does: no value changes, and no
+    lane goes to a shared spare slot, whose atomics serialize on the
+    card."""
+
+    semiring: str
+    spmm_fn: Optional[Callable] = None
+
+    def _uses_kernel(self, sr) -> bool:
+        return (self.spmm_fn is not None and sr.combine == "add"
+                and sr.propagate == "mul")
+
+    def init(self, ctx, state, root):
+        if not self._uses_kernel(get_semiring(self.semiring)):
+            return state
+        nv = state.vertex_val.shape[0]
+        s = segments(ctx.join_dst.clamp(0, nv - 1), nv)
+        src = ctx.join_src.clamp(0, nv - 1)[s.order]
+        return state._replace(segments=(src, s.seg,
+                                        _edge_weights(ctx)[s.order],
+                                        s.offsets))
+
+    def step(self, ctx, state):
+        sr = get_semiring(self.semiring)
+        nv = state.vertex_val.shape[0]
+        src = ctx.join_src.clamp(0, nv - 1)
+        dst = ctx.join_dst.clamp(0, nv - 1)
+        hit = state.frontier_bits[src]
+        if self._uses_kernel(sr):
+            s_src, s_dst, s_w, offsets = state.segments
+            s_src = torch.where(state.frontier_bits[s_src], s_src, nv)
+            lvl = self.spmm_fn(state.frontier_val[:, None], s_src, s_dst,
+                               s_w, offsets)[:, 0]
+        else:
+            prop = propagate(sr, state.frontier_val[src], _edge_weights(ctx))
+            lvl = _level_plane(sr, nv, dst,
+                               torch.where(hit, prop, sr.identity))
+        received, new_vv = _fold_level(sr, lvl, dst, hit, state.vertex_val)
+        nxt = received & (lvl < state.vertex_val) if sr.improving \
+            else received
+        new = hit & ~state.emitted
+        return state._replace(
+            frontier_bits=nxt,
+            frontier_val=torch.where(nxt, lvl, sr.identity),
+            vertex_val=new_vv, visited=state.visited | nxt,
+            emitted=state.emitted | hit,
+            emit_depth=torch.where(new, state.depth, state.emit_depth),
+            frontier_count=nxt.sum(dtype=torch.int32))
+
+
 @dataclasses.dataclass(frozen=True)
 class AppendUnionAll(Operator):
     """The recursive UNION ALL over positions: append the level's block to
@@ -687,6 +920,22 @@ class AppendUnionAll(Operator):
                               overflow=state.overflow | ovf)
 
 
+def _drain_value_frontier(ctx: Context, pipeline: "Pipeline",
+                          state: TraversalState) -> torch.Tensor:
+    """Fold the FINAL frontier's arrivals into the vertex accumulator.
+
+    :class:`WeightedExpand` ⊕-combines the arrivals of the previous
+    expansion at the start of each step, so when the depth bound (rather
+    than convergence) stops the loop, the last expansion's rows are in the
+    result but their values still sit in ``frontier_val``.  The dense step
+    combines in the level it emits, so only the positional finisher needs
+    this; it changes nothing on a converged (empty) frontier."""
+    slots = torch.arange(state.frontier_pos.shape[0], dtype=torch.int32,
+                         device=state.frontier_pos.device)
+    return _combine_arrivals(ctx, get_semiring(pipeline.semiring), state,
+                             slots)[-1]
+
+
 @dataclasses.dataclass(frozen=True)
 class LateMaterialize:
     """Fig. 4's single Materialize after the fixed point — the paper's core
@@ -696,8 +945,11 @@ class LateMaterialize:
 
     def finish(self, ctx, pipeline, state):
         values = ctx.table.take(state.result_pos, self.cols)
+        vv = (_drain_value_frontier(ctx, pipeline, state)
+              if pipeline.semiring != "reach" else None)
         return BFSResult(values, state.result_pos, state.result_count,
-                         state.depth, state.overflow, state.result_depth)
+                         state.depth, state.overflow, state.result_depth,
+                         vertex_values=vv)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -749,8 +1001,9 @@ def _emit(ctx: Context, cap_r: int, cols: Tuple[str, ...],
     row_depths = torch.where(blk.valid_mask(),
                              edge_depth[blk.positions.clamp(0, ej - 1)], -1)
     dirs = state.level_dirs if state.level_dirs.shape[0] else None
+    vv = state.vertex_val if state.vertex_val.shape[0] else None
     return BFSResult(values, pos_real, blk.count, state.depth, overflow,
-                     row_depths, dirs)
+                     row_depths, dirs, vv)
 
 
 # ---------------------------------------------------------------------------
@@ -772,6 +1025,8 @@ class Pipeline:
     tracks_emitted: bool = False     # carries the (EJ,) emitted-edge mask
     tracks_vertex_depth: bool = False  # deferred emission: (V,) depths
     tracks_switch: bool = False      # records per-level push/pull decisions
+    semiring: str = "reach"          # value-plane workload; 'reach' = the
+    #   boolean BFS with zero-size value placeholders
 
 
 def _initial_state(pipeline: Pipeline, ctx: Context, num_vertices: int
@@ -782,6 +1037,8 @@ def _initial_state(pipeline: Pipeline, ctx: Context, num_vertices: int
     dense = pipeline.rep == "dense"
     track = pipeline.tracks_emitted
     deferred = pipeline.tracks_vertex_depth
+    sr = (get_semiring(pipeline.semiring) if pipeline.semiring != "reach"
+          else None)
 
     def full(shape, fill, dtype=torch.int32):
         return torch.full(shape, fill, dtype=dtype, device=dev)
@@ -814,7 +1071,12 @@ def _initial_state(pipeline: Pipeline, ctx: Context, num_vertices: int
         vertex_depth=full((num_vertices,), -1) if deferred else none(),
         visited_count=zero,
         level_dirs=(full((pipeline.max_depth + 2,), -1, torch.int8)
-                    if pipeline.tracks_switch else none(torch.int8)))
+                    if pipeline.tracks_switch else none(torch.int8)),
+        frontier_val=(none(torch.float32) if sr is None else
+                      full((num_vertices if dense else cap_f,), sr.identity,
+                           torch.float32)),
+        vertex_val=(none(torch.float32) if sr is None else
+                    full((num_vertices,), sr.identity, torch.float32)))
 
 
 def _host_counts(pipeline: Pipeline, state: TraversalState, depth: int

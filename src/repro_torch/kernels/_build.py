@@ -22,7 +22,8 @@ __all__ = ["BUILD_DIR", "SOURCES", "NVCC_FLAGS", "build_all", "load"]
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parents[1] / "build" / "repro_torch_kernels"
-SOURCES = ("frontier_expand", "late_gather", "frontier_pull")
+SOURCES = ("frontier_expand", "late_gather", "frontier_pull",
+           "spmm_segment")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

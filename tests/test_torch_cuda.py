@@ -6,7 +6,14 @@ installed:
     PYTHONPATH=src python -m pytest -q tests/test_torch_cuda.py
 
 Kernels and plain versions get the same inputs; a gather does no
-arithmetic, so they must agree exactly.
+arithmetic, so they must agree exactly.  ``spmm_segment`` sums: where a
+row has one edge it must agree exactly, elsewhere within ``rtol = 1e-5,
+atol = 1e-5`` (the plain version's ``index_add_`` adds with atomics in no
+fixed order), and for rows of thousands of edges within 1e-5 of the
+row's sum of absolute terms.  A weighted ``run_query`` on the card equals the CPU run in
+every integer field and value column, and in ``vertex_values`` exactly for
+min and max semirings, within ``rtol = 1e-5, atol = 1e-6`` for sum and
+product (the CPU and the card scatter in different orders).
 """
 import numpy as np
 import pytest
@@ -22,6 +29,8 @@ from repro_torch.kernels.frontier_pull import ops as fp_ops
 from repro_torch.kernels.frontier_pull.ref import frontier_pull_ref
 from repro_torch.kernels.late_gather import ops as lg_ops
 from repro_torch.kernels.late_gather.ref import late_gather_ref
+from repro_torch.kernels.spmm_segment import ops as spmm_ops
+from repro_torch.kernels.spmm_segment.ref import spmm_segment_ref
 
 
 @pytest.fixture
@@ -108,3 +117,95 @@ def test_run_query_on_card_matches_cpu(cuda, engine, direction):
                 field
         for k in want.values:
             assert torch.equal(got.values[k].cpu(), want.values[k]), k
+
+
+def spmm_inputs(case: str, d: int):
+    """(a) a tree level: in-degree 1, V = 2^20, sources outside a random
+    frontier padded with V; (b) V = 2^20, E = 2^22 uniform; (c) V = 2^16,
+    E = 2^18 uniform; (d) (c) plus 8 hub rows of about 12,500 edges each
+    (the warp-summed rows at D = 1), every 5th source padded.  Weights
+    uniform in [0.5, 2), from a numpy seed."""
+    rng = np.random.default_rng(("a", "b", "c", "d").index(case))
+    if case == "a":
+        v = 1 << 20
+        dst = np.arange(1, v, dtype=np.int32)
+        src = (rng.random(v - 1) * dst).astype(np.int32)   # parent < child
+        frontier = rng.random(v) < 0.15
+        src = np.where(frontier[src], src, v).astype(np.int32)
+    else:
+        v, e = (1 << 20, 1 << 22) if case == "b" else (1 << 16, 1 << 18)
+        src = rng.integers(0, v, e).astype(np.int32)
+        dst = rng.integers(0, v, e).astype(np.int32)
+        if case == "d":
+            hubs = 100_000
+            src = np.concatenate([src, rng.integers(0, v, hubs)])
+            dst = np.concatenate([dst, rng.integers(0, 8, hubs)])
+            src[::5] = v
+            src, dst = src.astype(np.int32), dst.astype(np.int32)
+    w = rng.uniform(0.5, 2.0, dst.shape[0]).astype(np.float32)
+    x = torch.from_numpy(rng.standard_normal((v, d), dtype=np.float32))
+    return x, torch.from_numpy(src), torch.from_numpy(dst), \
+        torch.from_numpy(w), v
+
+
+@pytest.mark.parametrize("d", [1, 17, 128])
+@pytest.mark.parametrize("case", ["a", "b", "c", "d"])
+def test_spmm_segment_kernel_matches_plain(cuda, case, d):
+    x, src, dst, w, v = (t.to(cuda) if isinstance(t, torch.Tensor) else t
+                         for t in spmm_inputs(case, d))
+    want = spmm_segment_ref(x, src, dst, w, v)
+    before = spmm_ops.LAUNCHES
+    got = spmm_ops.spmm_segment(x, src, dst, w, v)
+    torch.cuda.synchronize()
+    assert spmm_ops.LAUNCHES == before + 1
+    assert got.shape == (v, d) and got.dtype == torch.float32
+    if case == "a":
+        assert torch.equal(got, want)
+    elif case == "d":
+        # a hub row sums ~12,500 terms that cancel: its rounding error is
+        # bounded by the row's absolute sum, not by its value
+        scale = spmm_segment_ref(x.abs(), src, dst, w.abs(), v)
+        assert bool(((got - want).abs() <= 1e-5 * scale + 1e-5).all())
+    else:
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+WEIGHTED = ([("precursive", d) for d in ("outbound", "inbound", "both")]
+            + [("bitmap", d) for d in ("outbound", "inbound")])
+SEMIRINGS = ("shortest_path", "aggregate_sum", "aggregate_max",
+             "aggregate_min", "aggregate_mul")
+
+
+@pytest.mark.parametrize("workload", SEMIRINGS)
+@pytest.mark.parametrize("engine,direction", WEIGHTED)
+def test_weighted_run_query_on_card_matches_cpu(cuda, engine, direction,
+                                                workload):
+    spec = TreeSpec(num_vertices=3000, height=10, payload_cols=2, seed=11)
+    cols = make_edge_table(spec)
+    cols["w"] = np.random.default_rng(12).uniform(
+        0.5, 2.0, spec.num_edges).astype(np.float32)
+    q = RecursiveQuery(engine, 10, 2, EngineCaps(4096, 8192),
+                       direction=direction, workload=workload,
+                       weight_col="w")
+    before = spmm_ops.LAUNCHES
+    for root in (0, 17, 2999):
+        got = run_query(q, dataset_from_numpy(cols, 3000, cuda), root)
+        want = run_query(q, dataset_from_numpy(cols, 3000, "cpu"), root)
+        for field in ("positions", "count", "depth", "overflow",
+                      "row_depths"):
+            assert torch.equal(getattr(got, field).cpu(),
+                               getattr(want, field)), field
+        for k in want.values:
+            assert torch.equal(got.values[k].cpu(), want.values[k]), k
+        g, w = got.vertex_values.cpu(), want.vertex_values
+        if workload in ("aggregate_sum", "aggregate_mul"):
+            assert torch.equal(g.isfinite(), w.isfinite())
+            torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-6,
+                                       equal_nan=True)
+        else:
+            assert torch.equal(g, w)
+    launched = spmm_ops.LAUNCHES - before
+    if engine == "bitmap" and workload == "aggregate_sum":
+        assert launched > 0
+    else:
+        assert launched == 0
