@@ -11,9 +11,11 @@ Phases (any failure raises and the script exits non-zero):
 2. hold each kernel against its plain PyTorch version on the card at the
    main path's shapes (exact equality; ``spmm_segment`` also on two random
    graphs with in-degree > 1 and on the tree's inbound view, whose vertex
-   0 owns 83,619 edges, within rtol = atol = 1e-5), and time the kernel,
-   the plain version and, where one exists, a single PyTorch library
-   call;
+   0 owns 83,619 edges, within rtol = atol = 1e-5; ``embedding_bag`` at
+   four shapes, the first the full DeepFM table with the serve_bulk
+   batch's 39 positions per sample as bags, within 1e-5 of each bag's sum
+   of absolute terms), and time the kernel, the plain version and, where
+   one exists, a single PyTorch library call;
 3. drive three paths at full size on the repo's own deployment
    (``src/repro/configs/posdb_bfs.py``: 2^20-vertex tree of height 16,
    8 payload columns, depth 16, result cap 2^20, plus a float32 edge
@@ -28,8 +30,15 @@ Phases (any failure raises and the script exits non-zero):
    ``diropt_hybrid`` ``hybrid`` row for row, root 0 must equal the BFS
    oracle (and, weighted, the path sums and products of the weights), and
    each path's kernel launch counters (zeroed just before the path, read
-   just after) must show it went through its kernels; warm latencies and
-   ``torch.profiler`` lines follow;
+   just after) must show it went through its kernels; then DeepFM serving
+   at the published Criteo width (``src/repro/configs/deepfm.py``:
+   32,722,432-row table, embed_dim 10, MLP 400-400-400, random weights
+   from a seed) for 8 serve_p99 requests (B = 512), one serve_bulk request
+   (B = 262,144) and one retrieval request (1,000,000 candidates), against
+   the port's CPU run (positions equal except bucket flips at a bucket
+   boundary, which are counted; scores within rtol = atol = 2e-5, TF32
+   off), and one ``embedding_bag`` call at the serve_bulk bags as its
+   users call it; warm latencies and ``torch.profiler`` lines follow;
 4. print one ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}``
    line last.
 
@@ -50,6 +59,7 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
+from repro_torch.configs.deepfm import CONFIG as DEEPFM  # noqa: E402
 from repro_torch.convert import dataset_from_numpy  # noqa: E402
 from repro_torch.core.bitmap import (diropt_hybrid_plan,  # noqa: E402
                                      diropt_plan)
@@ -58,9 +68,16 @@ from repro_torch.core.engine import (PUSH_COUNTERPART,  # noqa: E402
                                      EngineCaps, RecursiveQuery, build_plan,
                                      run_query)
 from repro_torch.core.operators import execute  # noqa: E402
+from repro_torch.data.recsys_stream import (recsys_batch,  # noqa: E402
+                                            vocab_sizes)
 from repro_torch.data.treegen import (TreeSpec, bfs_reference,  # noqa: E402
                                       make_edge_table)
 from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels.embedding_bag import ops as eb_ops  # noqa: E402
+from repro_torch.kernels.embedding_bag.ops import \
+    fixed_hot_lookup  # noqa: E402
+from repro_torch.kernels.embedding_bag.ref import (bag_cases,  # noqa: E402
+                                                    embedding_bag_ref)
 from repro_torch.kernels.frontier_expand import ops as fe_ops  # noqa: E402
 from repro_torch.kernels.frontier_expand.frontier_expand import \
     expand_index_cuda  # noqa: E402
@@ -72,6 +89,7 @@ from repro_torch.kernels.late_gather.ref import late_gather_ref  # noqa: E402
 from repro_torch.kernels.spmm_segment import ops as spmm_ops  # noqa: E402
 from repro_torch.kernels.spmm_segment.ref import \
     spmm_segment_ref  # noqa: E402
+from repro_torch.models import recsys  # noqa: E402
 
 # the posdb-bfs deployment (src/repro/configs/posdb_bfs.py), on one card:
 # frontier_cap is 2^18 instead of the config's per-shard 2^15, because the
@@ -91,6 +109,18 @@ SEMIRINGS = ("shortest_path", "aggregate_sum", "aggregate_max",
              "aggregate_min", "aggregate_mul")
 WEIGHT_COL = "w"
 SPMM_TOL = dict(rtol=1e-5, atol=1e-5)    # tests/test_semiring.py's
+# of each bag's sum of absolute terms: the kernel sums a bag in sorted
+# order, the plain version's index_add_ with atomics in no fixed order
+BAG_TOL = 1e-5
+# tests/test_models_gnn_recsys.py's tolerance between the reference's two
+# DeepFM paths: sums over fields and the MLP's dot products run in another
+# order on the card than on the CPU
+DEEPFM_TOL = dict(rtol=2e-5, atol=2e-5)
+# RECSYS_SHAPES of src/repro/configs/registry.py
+P99_BATCH, P99_REQUESTS = 512, 8
+BULK_BATCH = 262_144
+N_CANDIDATES = 1_000_000
+PARAM_SEED = 0
 
 
 class Request(NamedTuple):
@@ -214,7 +244,8 @@ def run_requests(ds, requests) -> list:
 
 
 KERNEL_OPS = {"frontier_expand": fe_ops, "late_gather": lg_ops,
-              "frontier_pull": fp_ops, "spmm_segment": spmm_ops}
+              "frontier_pull": fp_ops, "spmm_segment": spmm_ops,
+              "embedding_bag": eb_ops}
 
 
 def reset_launches() -> None:
@@ -235,8 +266,9 @@ def expected_launches(requests, results, num_vertices: int) -> dict:
     outside the fused ``both`` view (which has no kernel, as in the
     reference); ``spmm_segment`` once per executed level of a ``bitmap``
     aggregate_sum request; ``late_gather`` once per output column per
-    request.  A hybrid level is sparse when its frontier block, the rows
-    first emitted at that level, is below :func:`hybrid_threshold`."""
+    request; ``embedding_bag`` never.  A hybrid level is sparse when its
+    frontier block, the rows first emitted at that level, is below
+    :func:`hybrid_threshold`."""
     expand = pull = spmm = 0
     for req, r in zip(requests, results):
         engine, depth = req.engine, int(r.depth)
@@ -259,7 +291,7 @@ def expected_launches(requests, results, num_vertices: int) -> dict:
                 expand += 1
     n_cols = len(query("precursive").out_cols)
     return {"frontier_expand": expand, "late_gather": n_cols * len(requests),
-            "frontier_pull": pull, "spmm_segment": spmm}
+            "frontier_pull": pull, "spmm_segment": spmm, "embedding_bag": 0}
 
 
 def hybrid_threshold(engine: str, num_vertices: int) -> int:
@@ -390,7 +422,9 @@ def late_gather_case(table: torch.Tensor, positions: torch.Tensor, flush):
             f"late_gather {table.dtype} {tuple(table.shape)} differs")
     r, w = table.shape
     p = positions.shape[0]
-    live = int(((positions >= 0) & (positions < r)).sum())
+    in_range = (positions >= 0) & (positions < r)
+    live = int(in_range.sum())
+    rows = int(torch.unique(positions[in_range]).numel())
     elt = table.element_size()
     safe = positions.clamp(0, r - 1)
     return {
@@ -400,11 +434,12 @@ def late_gather_case(table: torch.Tensor, positions: torch.Tensor, flush):
                             flush),
         "library_ms": time_ms(lambda: torch.index_select(table, 0, safe),
                               flush),
-        # positions read once, live rows read once, every output row
-        # written once
-        "bound_ms": bound_ms(p * 4 + live * w * elt + p * w * elt),
+        # positions read once, each distinct live row read once, every
+        # output row written once
+        "bound_ms": bound_ms(p * 4 + rows * w * elt + p * w * elt),
         "bound_by": "bytes",
-        "shape": f"R={r} W={w} P={p} live={live} {str(table.dtype)[6:]}",
+        "shape": (f"R={r} W={w} P={p} live={live} rows={rows} "
+                  f"{str(table.dtype)[6:]}"),
     }
 
 
@@ -621,7 +656,217 @@ def value_oracle(levels: list, cols: dict, num_vertices: int
     return out
 
 
-def profile_request(ds, req: Request, warm_ms: float) -> dict:
+def embedding_bag_case(table, idx, seg, w, num_bags: int, combiner: str,
+                       flush) -> dict:
+    """``embedding_bag`` against its plain version on the card, within
+    BAG_TOL of each bag's sum of absolute terms.  ``ms`` is the kernel on
+    entries already in bag order; ``wrapper_ms`` adds the wrapper's stable
+    sort; ``library_ms`` is ``torch.nn.functional.embedding_bag`` over the
+    live entries (in-range segment, index wrapped into [0, R)) in bag
+    order, built outside the timed region.  ``cpu_exact`` says whether the
+    kernel also equals the plain version run on the CPU bit for bit (its
+    ``index_add_`` adds in the entries' order there)."""
+    r, d = table.shape
+    n = idx.shape[0]
+    s = spmm_ops.segments(seg, num_bags)
+    s_idx = idx[s.order]
+    s_w = None if w is None else w[s.order]
+    got = eb_ops.embedding_bag_sorted(table, s_idx, s.seg, s_w, s.offsets,
+                                      combiner=combiner)
+    via_wrapper = eb_ops.embedding_bag(table, idx, seg, num_bags, w,
+                                       combiner=combiner)
+    want = embedding_bag_ref(table, idx, seg, num_bags, w, combiner=combiner)
+    scale = embedding_bag_ref(table.abs(), idx, seg, num_bags,
+                              None if w is None else w.abs(),
+                              combiner=combiner)
+    torch.cuda.synchronize()
+    label = f"embedding_bag R={r} D={d} I={n} bags={num_bags} {combiner}"
+    require(torch.equal(got, via_wrapper), f"{label}: wrapper differs")
+    require(bool(((got - want).abs() <= BAG_TOL * scale).all()),
+            f"{label} differs from its plain version beyond {BAG_TOL} of "
+            f"the bags' absolute sums")
+    want_cpu = embedding_bag_ref(table.cpu(), idx.cpu(), seg.cpu(), num_bags,
+                                 None if w is None else w.cpu(),
+                                 combiner=combiner)
+    # the library call's inputs: live entries in bag order, bag offsets
+    wrapped = torch.where(s_idx < 0, s_idx + r, s_idx).long()
+    in_bag = (s.seg >= 0) & (s.seg < num_bags)
+    live = in_bag & (wrapped >= 0) & (wrapped < r)
+    lib_idx, lib_seg = wrapped[live], s.seg[live]
+    lib_w = None if s_w is None else s_w[live]
+    lib_off = torch.searchsorted(lib_seg, torch.arange(
+        num_bags, dtype=lib_seg.dtype, device=lib_seg.device))
+    mode = "sum" if combiner == "sum" else "mean"
+    require(mode == "sum" or lib_w is None,
+            "the library's mean takes no weights")
+
+    def library():
+        return torch.nn.functional.embedding_bag(
+            lib_idx, table, lib_off, mode=mode, per_sample_weights=lib_w)
+
+    n_live = int(live.sum())
+    rows = int(torch.unique(lib_idx).numel())
+    entries = int(in_bag.sum())
+    weighted = w is not None
+    # the kernel's call: offsets, the in-bag entries' indices (and
+    # weights), each distinct live row once, the output written once
+    nbytes = (num_bags + 1) * 4 + entries * (8 if weighted else 4) \
+        + rows * d * 4 + num_bags * d * 4
+    ops = (2.0 if weighted else 1.0) * n_live * d
+    return {
+        "max_abs_err": max_abs_err(got, want),
+        "cpu_exact": bool(torch.equal(got.cpu(), want_cpu)),
+        "library_max_abs_err": max_abs_err(got, library()),
+        "ms": time_ms(lambda: eb_ops.embedding_bag_sorted(
+            table, s_idx, s.seg, s_w, s.offsets, combiner=combiner), flush),
+        "wrapper_ms": time_ms(lambda: eb_ops.embedding_bag(
+            table, idx, seg, num_bags, w, combiner=combiner), flush),
+        "plain_ms": time_ms(lambda: embedding_bag_ref(
+            table, idx, seg, num_bags, w, combiner=combiner), flush),
+        "library_ms": time_ms(library, flush),
+        "bound_ms": bound_ms(nbytes, ops),
+        "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S
+        >= ops / FP32_OPS_PER_S else "operations",
+        # the wrapper's call adds the segment ids read and the sort's own
+        # output (sorted keys, int64 order) and the permuted copies
+        "wrapper_bound_ms": bound_ms(nbytes + n * 4 + n * 12
+                                     + n * (8 if weighted else 4), ops),
+        "shape": f"R={r} D={d} I={n} bags={num_bags} live={n_live} "
+                 f"rows={rows} {combiner}{' weighted' if weighted else ''}",
+    }
+
+
+def bag_inputs(case: str):
+    """``bag_cases``'s case (b) or (c), on the card."""
+    *tensors, num_bags = bag_cases(case)
+    return [t.to(DEVICE) for t in tensors] + [num_bags]
+
+
+def embedding_bag_phase(table, pos, flush):
+    """(a) the full DeepFM table, one bag per serve_bulk sample over its 39
+    positions (unweighted sum), whose sums must also equal the forward
+    pass's ``emb.sum(1)``; (b) and (c) weighted with out-of-range entries
+    (:func:`bag_inputs`); (d) (b)'s entries unweighted under ``mean``."""
+    b, k = pos.shape
+    idx = pos.reshape(-1).contiguous()
+    seg = torch.arange(b, dtype=torch.int32, device=DEVICE) \
+        .repeat_interleave(k)
+    main = embedding_bag_case(table, idx, seg, None, b, "sum", flush)
+    bags = eb_ops.embedding_bag(table, idx, seg, b)
+    emb = fixed_hot_lookup(table, pos)
+    torch.cuda.synchronize()
+    require(bool(((bags - emb.sum(1)).abs()
+                  <= BAG_TOL * emb.abs().sum(1)).all()),
+            "embedding_bag (a) differs from the forward pass's emb.sum(1)")
+    tab_b, idx_b, seg_b, w_b, nb = bag_inputs("b")
+    cases = {
+        "a": main,
+        "b": embedding_bag_case(tab_b, idx_b, seg_b, w_b, nb, "sum", flush),
+        "c": embedding_bag_case(*bag_inputs("c")[:4], 8192, "sum", flush),
+        "d": embedding_bag_case(tab_b, idx_b, seg_b, None, nb, "mean",
+                                flush),
+    }
+    entry = {
+        "name": "embedding_bag", "route": "cuda",
+        "source": "src/repro_torch/csrc/embedding_bag.cu",
+        "replaces": "src/repro/kernels/embedding_bag/embedding_bag.py:47",
+        **main,
+    }
+    return entry, cases, (idx, seg, bags)
+
+
+# ---------------------------------------------------------------------------
+# DeepFM serving at the published Criteo width
+# ---------------------------------------------------------------------------
+
+class RecsysRequest(NamedTuple):
+    kind: str                       # serve_p99 | serve_bulk | retrieval_cand
+    dense: torch.Tensor             # on the host, as a request arrives
+    sparse: torch.Tensor
+    cand: torch.Tensor | None = None
+
+    def __str__(self) -> str:
+        n = f" C={self.cand.shape[0]}" if self.cand is not None else ""
+        return f"deepfm {self.kind} B={self.dense.shape[0]}{n}"
+
+
+def make_recsys_requests() -> list[RecsysRequest]:
+    """8 serve_p99 batches ``recsys_batch(1, r, 512)``, the serve_bulk
+    batch ``recsys_batch(0, 0, 262144)``, and one retrieval context
+    ``recsys_batch(2, 0, 1)`` against 1,000,000 candidate items of the
+    widest categorical field (C1, 7,912,889 ids), drawn with numpy seed 3."""
+    vocabs = vocab_sizes(DEEPFM.vocab_scale)
+
+    def host(seed: int, step: int, batch: int):
+        b = recsys_batch(seed, step, batch, vocabs=vocabs)
+        return torch.from_numpy(b["dense"]), torch.from_numpy(b["sparse"])
+
+    reqs = [RecsysRequest("serve_p99", *host(1, r, P99_BATCH))
+            for r in range(P99_REQUESTS)]
+    reqs.append(RecsysRequest("serve_bulk", *host(0, 0, BULK_BATCH)))
+    c1 = int(recsys.field_offsets(DEEPFM)[DEEPFM.n_dense])
+    cand = c1 + np.random.default_rng(3).integers(0, vocabs[0], N_CANDIDATES)
+    reqs.append(RecsysRequest("retrieval_cand", *host(2, 0, 1),
+                              torch.from_numpy(cand.astype(np.int32))))
+    return reqs
+
+
+def params_mb(params) -> float:
+    tensors = [params["table"], params["first_order"], params["bias"],
+               *(t for lp in params["mlp"] for t in lp.values())]
+    return sum(t.nbytes for t in tensors) / 2 ** 20
+
+
+def serve(params, offsets, req: RecsysRequest):
+    """One request as a user makes it: its features copied to the
+    parameters' device, then ``serve_scores`` or ``retrieval_scores``."""
+    device = offsets.device
+    dense, sparse = req.dense.to(device), req.sparse.to(device)
+    if req.cand is None:
+        return recsys.serve_scores(params, DEEPFM, dense, sparse, offsets)
+    return recsys.retrieval_scores(params, DEEPFM, dense, sparse, offsets,
+                                   req.cand.to(device))
+
+
+def check_recsys(reqs, got, want, positions, want_positions) -> dict:
+    """Positions card against CPU: every difference is a bucket flip, one
+    bucket apart where ``1000 * sigmoid(x)`` (float64) lies within 1e-3 of
+    an integer.  Scores within DEEPFM_TOL on every sample whose positions
+    agree (retrieval: all candidates, if its context's agree).  Returns the
+    flip counts by request kind."""
+    flips = dict.fromkeys((req.kind for req in reqs), 0)
+    for req, g, w, pos, wpos in zip(reqs, got, want, positions,
+                                    want_positions):
+        pos = pos.cpu()
+        label = str(req)
+        require(g.shape == w.shape and bool(torch.isfinite(g).all()),
+                f"{label}: shape or non-finite scores")
+        diff = pos != wpos
+        require(not bool(diff[:, DEEPFM.n_dense:].any()),
+                f"{label}: a categorical position differs")
+        rows, cols = torch.nonzero(diff, as_tuple=True)
+        x = req.dense[rows, cols].double()
+        scaled = 1000.0 / (1.0 + torch.exp(-x))
+        require(bool(((pos[rows, cols] - wpos[rows, cols]).abs() == 1).all()
+                     and ((scaled - scaled.round()).abs() < 1e-3).all()),
+                f"{label}: a position differs away from a bucket boundary")
+        flips[req.kind] += int(rows.numel())
+        agree = ~diff.any(1)
+        g = g.cpu()
+        if req.cand is not None:
+            if bool(agree.all()):
+                require(bool(torch.isclose(g, w, **DEEPFM_TOL).all()),
+                        f"{label}: scores differ beyond {DEEPFM_TOL}")
+            else:
+                print(f"{label}: the context's positions flipped, so its "
+                      f"{g.numel()} candidate scores were not compared")
+            continue
+        require(bool(torch.isclose(g[agree], w[agree], **DEEPFM_TOL).all()),
+                f"{label}: scores differ beyond {DEEPFM_TOL}")
+    return flips
+
+
+def profile_call(label: str, fn, warm_ms: float) -> dict:
     """Where one warm request's time goes: device time per kernel from
     ``torch.profiler``, and the device's idle share against the request's
     unprofiled warm latency ``warm_ms``."""
@@ -630,7 +875,7 @@ def profile_request(ds, req: Request, warm_ms: float) -> dict:
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        run_request(ds, req)
+        fn()
         torch.cuda.synchronize()
     # device-side events only (kernels, copies, fills): the host ops that
     # launched them carry the same time again
@@ -640,7 +885,7 @@ def profile_request(ds, req: Request, warm_ms: float) -> dict:
     top = sorted(kernels, key=lambda e: e.self_device_time_total,
                  reverse=True)[:8]
     return {
-        "request": str(req), "warm_ms": warm_ms,
+        "request": label, "warm_ms": warm_ms,
         "device_ms": device_ms,
         "idle_share": 1 - device_ms / warm_ms if device_ms else None,
         "device_launches": sum(e.count for e in kernels),
@@ -649,13 +894,13 @@ def profile_request(ds, req: Request, warm_ms: float) -> dict:
     }
 
 
-def warm_latency_ms(ds, req: Request) -> float:
+def warm_latency_ms(fn) -> float:
     """Median of 3 warm runs, host clock around the request and a sync."""
     ms = []
     for _ in range(3):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        run_request(ds, req)
+        fn()
         torch.cuda.synchronize()
         ms.append((time.perf_counter() - t0) * 1e3)
     return statistics.median(ms)
@@ -742,6 +987,34 @@ def main() -> None:
           f"{len(weighted_requests)} weighted requests in "
           f"{time.perf_counter() - t1:.3f} s (host clock)")
 
+    # DeepFM at Criteo width: random weights on the card from a seeded CUDA
+    # generator, copied to the CPU for the port's CPU run; TF32 off
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    params = recsys.init_deepfm(
+        DEEPFM, torch.Generator(device=DEVICE).manual_seed(PARAM_SEED),
+        DEVICE)
+    params_cpu = {k: (v.cpu() if k != "mlp" else
+                      [{n: t.cpu() for n, t in lp.items()} for lp in v])
+                  for k, v in params.items()}
+    offsets_np = recsys.field_offsets(DEEPFM)
+    offsets = torch.from_numpy(offsets_np).to(DEVICE)
+    offsets_cpu = torch.from_numpy(offsets_np)
+    recsys_requests = make_recsys_requests()
+    t1 = time.perf_counter()
+    expected_recsys = [serve(params_cpu, offsets_cpu, req)
+                       for req in recsys_requests]
+    expected_positions = [recsys.featurize(DEEPFM, req.dense, req.sparse,
+                                           offsets_cpu)
+                          for req in recsys_requests]
+    print(f"deepfm: {recsys.total_rows(DEEPFM)} x {DEEPFM.embed_dim} "
+          f"{DEEPFM.table_dtype} table "
+          f"({params['table'].nbytes / 2 ** 20:.1f} MiB), MLP "
+          f"{list(DEEPFM.mlp_dims)}, made in {t1 - t0:.3f} s; cpu reference "
+          f"of {len(recsys_requests)} requests in "
+          f"{time.perf_counter() - t1:.3f} s (host clock)")
+
     # phase 2: each kernel against its plain version on the card
     flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device=DEVICE)
     targets, valid, level, emitted = widest_level(expected[0], cols,
@@ -762,8 +1035,16 @@ def main() -> None:
     sp, sp_cases = spmm_segment_phase(bitmap_sum0, cols, SPEC.num_vertices,
                                       flush)
     print("spmm_segment cases: " + json.dumps(sp_cases))
+    bulk = recsys_requests[P99_REQUESTS]
+    bulk_pos = recsys.featurize(DEEPFM, bulk.dense.to(DEVICE),
+                                bulk.sparse.to(DEVICE), offsets)
+    eb, eb_cases, (bag_idx, bag_seg, bag_sums) = embedding_bag_phase(
+        params["table"], bulk_pos, flush)
+    print("embedding_bag cases: " + json.dumps(eb_cases))
+    lg_deepfm = late_gather_case(params["table"], bag_idx, flush)
+    print("late_gather deepfm case: " + json.dumps(lg_deepfm))
     kernels = {"frontier_expand": fe, "late_gather": lg,
-               "frontier_pull": fp, "spmm_segment": sp}
+               "frontier_pull": fp, "spmm_segment": sp, "embedding_bag": eb}
 
     # phase 3: each path at full size; the counters see only that path
     torch.cuda.reset_peak_memory_stats()
@@ -780,12 +1061,53 @@ def main() -> None:
                    expected_launches(reqs, want, SPEC.num_vertices), levels,
                    values)
     peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
+
+    # DeepFM serving, then the embedding_bag op as its users call it
+    torch.cuda.reset_peak_memory_stats()
+    held_mb = torch.cuda.memory_allocated() / 2 ** 20
+    reset_launches()
+    got_recsys = [serve(params, offsets, req) for req in recsys_requests]
+    by_path["recsys"] = read_launches()
+    recsys_peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20 - held_mb
+    positions = [recsys.featurize(DEEPFM, req.dense.to(DEVICE),
+                                  req.sparse.to(DEVICE), offsets)
+                 for req in recsys_requests]
+    flips = check_recsys(recsys_requests, got_recsys, expected_recsys,
+                         positions, expected_positions)
+    n_serve = sum(1 for req in recsys_requests if req.cand is None)
+    require(by_path["recsys"] == {**dict.fromkeys(KERNEL_OPS, 0),
+                                  "late_gather": n_serve},
+            f"recsys path: launches {by_path['recsys']}, want late_gather "
+            f"once per serve_scores call ({n_serve}) and nothing else")
+    print(f"recsys path: {len(recsys_requests)} requests equal to the CPU "
+          f"run (scores within {DEEPFM_TOL} where positions agree); bucket "
+          f"flips {json.dumps(flips)}; launches "
+          f"{json.dumps(by_path['recsys'])}; peak device memory "
+          f"{recsys_peak_mb:.1f} MiB above the {held_mb:.1f} MiB held "
+          f"before the path (the DeepFM parameters "
+          f"{params_mb(params):.1f} MiB, the rest earlier phases')")
+    reset_launches()
+    got_bags = eb_ops.embedding_bag(params["table"], bag_idx, bag_seg,
+                                    BULK_BATCH)
+    by_path["bags"] = read_launches()
+    require(torch.equal(got_bags, bag_sums),
+            "bags path: the op differs from phase 2's call")
+    require(by_path["bags"] == {**dict.fromkeys(KERNEL_OPS, 0),
+                                "embedding_bag": 1},
+            f"bags path: launches {by_path['bags']}")
+    print(f"bags path: embedding_bag over {bag_idx.shape[0]} positions "
+          f"into {BULK_BATCH} bags equal to phase 2; launches "
+          f"{json.dumps(by_path['bags'])}")
     for name, entry in kernels.items():
         entry["launches"] = sum(n[name] for n in by_path.values())
         entry["launches_by_path"] = {p: n[name] for p, n in by_path.items()}
         require(entry["launches"] > 0, f"{name} was never launched")
     require(by_path["weighted"]["spmm_segment"] > 0,
             "the weighted path never launched spmm_segment")
+    for path, n in by_path.items():
+        require((n["embedding_bag"] > 0) == (path == "bags"),
+                f"{path} path: embedding_bag launched {n['embedding_bag']} "
+                f"times")
     dense_got = dict(zip(dense_requests, got["dense"]))
     for req, r in dense_got.items():
         if req.engine in PUSH_COUNTERPART:
@@ -821,7 +1143,7 @@ def main() -> None:
         if req.workload == "reach" and req.engine != "precursive" and \
                 (req.direction, req.root) != ("outbound", 0):
             continue
-        warm[req] = warm_latency_ms(ds, req)
+        warm[req] = warm_latency_ms(lambda req=req: run_request(ds, req))
         dirs = ("" if r.level_dirs is None else
                 f" level_dirs {r.level_dirs[:int(r.depth)].tolist()}")
         print(f"request {req}: count {int(r.count)} depth {int(r.depth)} "
@@ -840,11 +1162,21 @@ def main() -> None:
                 Request("bitmap", "outbound", 0, "aggregate_sum"),
                 Request("bitmap", "inbound", SPEC.num_vertices - 1,
                         "aggregate_sum")]:
-        print("profile: " + json.dumps(profile_request(ds, req, warm[req])))
+        print("profile: " + json.dumps(profile_call(
+            str(req), lambda req=req: run_request(ds, req), warm[req])))
+
+    one_p99, retrieval = recsys_requests[0], recsys_requests[-1]
+    for req in (one_p99, bulk, retrieval):
+        def fn(req=req):
+            return serve(params, offsets, req)
+        ms = warm_latency_ms(fn)
+        print(f"request {req}: warm latency {ms:.3f} ms (median of 3, host "
+              f"clock, the features' copy to the card included)")
+        print("profile: " + json.dumps(profile_call(str(req), fn, ms)))
 
     print(f"script: {time.perf_counter() - t_start:.3f} s from the build "
           f"on (host clock)")
-    print(json.dumps({"kernels": [fe, lg, fp, sp]}))
+    print(json.dumps({"kernels": list(kernels.values())}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": device_name,
         "count": torch.cuda.device_count()}}))

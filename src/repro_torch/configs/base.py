@@ -1,0 +1,18 @@
+"""Configuration dataclasses, copied from the reference's
+``src/repro/configs/base.py`` (the port keeps its own copy)."""
+from __future__ import annotations
+
+import dataclasses
+from typing import Sequence
+
+
+@dataclasses.dataclass(frozen=True)
+class RecsysConfig:
+    name: str
+    n_dense: int = 13
+    n_sparse: int = 26
+    embed_dim: int = 10
+    mlp_dims: Sequence[int] = (400, 400, 400)
+    vocab_scale: float = 1.0             # scales the Criteo vocabularies
+    dtype: str = "float32"
+    table_dtype: str = "float32"         # or "bfloat16"

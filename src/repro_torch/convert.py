@@ -3,19 +3,22 @@
 The reference's dataset is its column table; the port takes it as numpy
 arrays (for example ``{k: np.asarray(v) for k, v in
 ds.table.columns.items()}``) and rebuilds its own ``Dataset`` on a device,
-keeping each column's dtype.  This is the counterpart of carrying weights
-across for a model.
+keeping each column's dtype.  DeepFM's parameters cross the same way: the
+reference's ``init_deepfm`` pytree as numpy arrays (for example
+``jax.tree_util.tree_map(np.asarray, params)``) become the port's
+parameter dictionary.
 """
 from __future__ import annotations
 
-from typing import Mapping
+from typing import Any, Mapping
 
 import numpy as np
+import torch
 
 from .core.engine import Dataset, resolve_device
 from .core.table import ColumnTable
 
-__all__ = ["dataset_from_numpy"]
+__all__ = ["dataset_from_numpy", "deepfm_params_from_numpy"]
 
 
 def dataset_from_numpy(columns: Mapping[str, np.ndarray], num_vertices: int,
@@ -25,3 +28,30 @@ def dataset_from_numpy(columns: Mapping[str, np.ndarray], num_vertices: int,
     device = resolve_device(device)
     return Dataset.prepare(ColumnTable.from_numpy(columns, device),
                            num_vertices, device=device)
+
+
+def _tensor(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    """``a`` as a tensor of the same dtype and bits; numpy has no bfloat16
+    of its own (JAX's arrives as the ``ml_dtypes`` type of that name), so
+    it crosses as raw 16-bit words."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        t = torch.from_numpy(a.view(np.uint16).copy()).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(a.copy())
+    return t.to(device)
+
+
+def deepfm_params_from_numpy(params: Mapping[str, Any], device=None
+                             ) -> dict[str, Any]:
+    """The port's DeepFM parameters (``models.recsys``) from the
+    reference's ``init_deepfm`` pytree as numpy arrays (``table``,
+    ``first_order``, ``bias``, ``mlp[i]["w"|"b"]``), keeping each dtype
+    (a bfloat16 ``table_dtype`` included), on ``device`` (``None``: the
+    card, raising where CUDA is unavailable)."""
+    device = resolve_device(device)
+    out: dict[str, Any] = {k: _tensor(params[k], device)
+                           for k in ("table", "first_order", "bias")}
+    out["mlp"] = [{k: _tensor(layer[k], device) for k in ("w", "b")}
+                  for layer in params["mlp"]]
+    return out

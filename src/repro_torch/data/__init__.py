@@ -1,1 +1,2 @@
-"""Data: the paper's tree generator and its BFS oracle."""
+"""Data: the paper's tree generator and its BFS oracle, and the
+Criteo-like recsys stream."""

@@ -1,0 +1,81 @@
+"""Plain PyTorch version of EmbeddingBag (ragged gather + weighted segment
+sum): the correctness oracle of the CUDA kernel, and what runs on CPU
+tensors."""
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+
+COMBINERS = ("sum", "mean")
+
+
+def check_combiner(combiner: str) -> None:
+    if combiner not in COMBINERS:
+        raise ValueError(f"combiner must be one of {COMBINERS}, got "
+                         f"{combiner!r}")
+
+
+def _bag_sizes(indices: torch.Tensor, segment_ids: torch.Tensor,
+              num_bags: int, num_rows: int) -> torch.Tensor:
+    """(num_bags,) float32 count of the entries with ``indices < num_rows``
+    per bag, at least 1: the divisor of the ``mean`` combiner."""
+    slot = torch.where((segment_ids >= 0) & (segment_ids < num_bags),
+                       segment_ids, num_bags).long()
+    ones = (indices < num_rows).to(torch.float32)
+    sizes = ones.new_zeros((num_bags + 1,)).index_add_(0, slot, ones)
+    return sizes[:num_bags].clamp(min=1.0)
+
+
+def embedding_bag_ref(table: torch.Tensor, indices: torch.Tensor,
+                      segment_ids: torch.Tensor, num_bags: int,
+                      weights: Optional[torch.Tensor] = None,
+                      *, combiner: str = "sum") -> torch.Tensor:
+    """out[b] = sum_{i: seg[i]=b} w[i] * table[idx[i]], summed in float32.
+
+    table (R, D); indices/segment_ids (I,) int32 in any order; weights
+    (I,) or None (all ones).  An index >= R is padding and contributes
+    zero; a negative index in [-R, 0) counts from the end once (row
+    R + idx), as a JAX index does; one below -R contributes zero.  A
+    segment id outside [0, num_bags) is dropped; a bag with no entry is
+    zero.  ``combiner="mean"`` divides each bag by its count of indices
+    < R, at least 1."""
+    check_combiner(combiner)
+    r, d = table.shape
+    idx = indices.long()
+    idx = torch.where(idx < 0, idx + r, idx)
+    live = (idx >= 0) & (idx < r)
+    rows = table.index_select(0, idx.clamp(0, r - 1)).to(torch.float32)
+    rows = torch.where(live[:, None], rows, 0.0)
+    if weights is not None:
+        rows = rows * weights.to(torch.float32)[:, None]
+    slot = torch.where((segment_ids >= 0) & (segment_ids < num_bags),
+                       segment_ids, num_bags).long()
+    out = rows.new_zeros((num_bags + 1, d)).index_add_(0, slot, rows)
+    out = out[:num_bags]
+    if combiner == "mean":
+        out = out / _bag_sizes(indices, segment_ids, num_bags, r)[:, None]
+    return out.to(table.dtype)
+
+
+def bag_cases(case: str):
+    """Seeded inputs of the kernel's card checks, on the host: (smoke)
+    R = 40, D = 10, 70 indices into 9 bags; (b) R = 2^16, D = 16, 2^14
+    indices into 2,048 bags (benchmarks/kernels_bench.py's shape); (c)
+    R = 2^16, D = 128, 2^18 indices into 8,192 bags.  Weighted, unsorted;
+    indices in [-R, 17R/16) (some negative, some padding), segment ids in
+    [-8, B + 8) with bags 1000-1015 left empty (smoke: [-1, B + 1), bag 4
+    empty).  Returns [table, indices, segment_ids, weights, num_bags]."""
+    r, d, n, b = {"smoke": (40, 10, 70, 9), "b": (1 << 16, 16, 1 << 14, 2048),
+                  "c": (1 << 16, 128, 1 << 18, 8192)}[case]
+    rng = np.random.default_rng(("smoke", "b", "c").index(case) + 20)
+    tab = rng.standard_normal((r, d), dtype=np.float32)
+    idx = rng.integers(-r, r + r // 16, n).astype(np.int32)
+    pad = 1 if case == "smoke" else 8
+    seg = rng.integers(-pad, b + pad, n).astype(np.int32)
+    empty = (4, 5) if case == "smoke" else (1000, 1016)
+    seg = np.where((seg >= empty[0]) & (seg < empty[1]), empty[1], seg)
+    w = rng.uniform(-1.0, 2.0, n).astype(np.float32)
+    return [torch.from_numpy(a) for a in (tab, idx, seg, w)] + [b]

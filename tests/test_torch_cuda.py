@@ -10,7 +10,12 @@ arithmetic, so they must agree exactly.  ``spmm_segment`` sums: where a
 row has one edge it must agree exactly, elsewhere within ``rtol = 1e-5,
 atol = 1e-5`` (the plain version's ``index_add_`` adds with atomics in no
 fixed order), and for rows of thousands of edges within 1e-5 of the
-row's sum of absolute terms.  A weighted ``run_query`` on the card equals the CPU run in
+row's sum of absolute terms.  ``embedding_bag`` sums a bag in its sorted
+order and the plain version's ``index_add_`` with atomics: they agree
+within 1e-5 of each bag's sum of absolute terms.  DeepFM on the card
+equals the CPU run in its positions and within ``rtol = atol = 2e-5`` in
+its logits (sums over fields and the MLP's dot products run in another
+order; TF32 off).  A weighted ``run_query`` on the card equals the CPU run in
 every integer field and value column, and in ``vertex_values`` exactly for
 min and max semirings, within ``rtol = 1e-5, atol = 1e-6`` for sum and
 product (the CPU and the card scatter in different orders).
@@ -24,6 +29,10 @@ from repro_torch.convert import dataset_from_numpy
 from repro_torch.core.csr import build_csr, expand_frontier
 from repro_torch.core.engine import EngineCaps, RecursiveQuery, run_query
 from repro_torch.data.treegen import TreeSpec, make_edge_table
+from repro_torch.configs.deepfm import SMOKE
+from repro_torch.data.recsys_stream import recsys_batch, vocab_sizes
+from repro_torch.kernels.embedding_bag import ops as eb_ops
+from repro_torch.kernels.embedding_bag.ref import bag_cases, embedding_bag_ref
 from repro_torch.kernels.frontier_expand import ops as fe_ops
 from repro_torch.kernels.frontier_pull import ops as fp_ops
 from repro_torch.kernels.frontier_pull.ref import frontier_pull_ref
@@ -31,6 +40,7 @@ from repro_torch.kernels.late_gather import ops as lg_ops
 from repro_torch.kernels.late_gather.ref import late_gather_ref
 from repro_torch.kernels.spmm_segment import ops as spmm_ops
 from repro_torch.kernels.spmm_segment.ref import spmm_segment_ref
+from repro_torch.models import recsys
 
 
 @pytest.fixture
@@ -209,3 +219,69 @@ def test_weighted_run_query_on_card_matches_cpu(cuda, engine, direction,
         assert launched > 0
     else:
         assert launched == 0
+
+
+@pytest.mark.parametrize("combiner", ["sum", "mean"])
+@pytest.mark.parametrize("weighted", [False, True])
+@pytest.mark.parametrize("case", ["smoke", "b", "c"])
+def test_embedding_bag_kernel_matches_plain(cuda, case, weighted, combiner):
+    tab, idx, seg, w, b = bag_cases(case)
+    tab, idx, seg, w = (t.to(cuda) for t in (tab, idx, seg, w))
+    w = w if weighted else None
+    want = embedding_bag_ref(tab, idx, seg, b, w, combiner=combiner)
+    scale = embedding_bag_ref(tab.abs(), idx, seg, b,
+                              None if w is None else w.abs(),
+                              combiner=combiner)
+    before = eb_ops.LAUNCHES
+    got = eb_ops.embedding_bag(tab, idx, seg, b, w, combiner=combiner)
+    torch.cuda.synchronize()
+    assert eb_ops.LAUNCHES == before + 1
+    assert got.shape == (b, tab.shape[1]) and got.dtype == torch.float32
+    assert bool(((got - want).abs() <= 1e-5 * scale).all())
+    empty = 4 if case == "smoke" else 1000
+    assert not got[empty].any()
+
+
+def test_embedding_bag_kernel_refuses_other_dtypes(cuda):
+    tab, idx, seg, _, b = bag_cases("smoke")
+    with pytest.raises(ValueError, match="float32"):
+        eb_ops.embedding_bag(tab.to(cuda, torch.bfloat16), idx.to(cuda),
+                             seg.to(cuda), b)
+
+
+@pytest.mark.parametrize("table_dtype", ["float32", "bfloat16"])
+def test_deepfm_on_card_matches_cpu(cuda, table_dtype, monkeypatch):
+    """SMOKE widths: serve_scores, deepfm_forward and retrieval_scores on
+    the card against the CPU run from the same parameters.  Retrieval
+    scores are in the table's dtype: with a bfloat16 table they may round
+    to neighbouring bfloat16 values (rtol 2^-7)."""
+    import dataclasses
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    cfg = dataclasses.replace(SMOKE, table_dtype=table_dtype)
+    params = recsys.init_deepfm(cfg, torch.Generator().manual_seed(3), "cpu")
+    on_card = {k: (v.to(cuda) if k != "mlp" else
+                   [{n: t.to(cuda) for n, t in lp.items()} for lp in v])
+               for k, v in params.items()}
+    batch = recsys_batch(0, 0, 64, vocabs=vocab_sizes(cfg.vocab_scale))
+    args = [torch.from_numpy(a) for a in (batch["dense"], batch["sparse"],
+                                          recsys.field_offsets(cfg))]
+    card_args = [a.to(cuda) for a in args]
+    assert torch.equal(recsys.featurize(cfg, *card_args).cpu(),
+                       recsys.featurize(cfg, *args))
+    before = lg_ops.LAUNCHES
+    got = recsys.serve_scores(on_card, cfg, *card_args)
+    torch.cuda.synchronize()
+    assert lg_ops.LAUNCHES == before + 1
+    torch.testing.assert_close(got.cpu(),
+                               recsys.serve_scores(params, cfg, *args),
+                               rtol=2e-5, atol=2e-5)
+    torch.testing.assert_close(
+        recsys.deepfm_forward(on_card, cfg, *card_args).cpu(),
+        recsys.deepfm_forward(params, cfg, *args), rtol=2e-5, atol=2e-5)
+    cand = torch.arange(0, recsys.total_rows(cfg), 7, dtype=torch.int32)
+    one = [a[:1] for a in args[:2]] + [args[2]]
+    torch.testing.assert_close(
+        recsys.retrieval_scores(on_card, cfg, *[a.to(cuda) for a in one],
+                                cand.to(cuda)).cpu().float(),
+        recsys.retrieval_scores(params, cfg, *one, cand).float(),
+        rtol=2e-5 if table_dtype == "float32" else 2 ** -7, atol=2e-5)

@@ -1,0 +1,190 @@
+"""The port's plain ``embedding_bag`` and its wrappers on CPU tensors against
+the JAX Pallas kernel (``embedding_bag(..., use_pallas=True)``, interpret
+mode) and the JAX ``embedding_bag_ref``, at tests/test_kernels.py's sweep
+(d in {1, 7, 10, 128, 200}, weighted or not, unsorted segments, empty
+bags, the mean combiner), and ``fixed_hot_lookup`` against the
+reference's.
+
+Negative indices and segment ids outside [0, num_bags) are compared with
+``embedding_bag_ref`` only: there the Pallas kernel clamps a segment id
+into the last bag and overwrites it, where its plain version drops it (a
+reference caveat the port does not copy).
+
+Tolerance ``rtol = 1e-5, atol = 1e-5``: the Pallas kernel sums a bag in
+sorted order from a sentinel row, the plain versions add into zeros in
+their own order.  A gather does no arithmetic, so ``fixed_hot_lookup`` is
+exact.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro.kernels.embedding_bag import (embedding_bag, embedding_bag_ref,
+                                         fixed_hot_lookup)
+from repro_torch.kernels.embedding_bag import ops as eb_ops
+from repro_torch.kernels.embedding_bag import \
+    embedding_bag_ref as port_embedding_bag_ref
+from repro_torch.kernels.spmm_segment.ops import segments
+
+TOL = dict(rtol=1e-5, atol=1e-5)
+R, I, B = 40, 70, 9
+EMPTY = (4, 8)        # bags that get no entry
+
+
+def inputs(d, weighted, seed):
+    """tests/test_kernels.py's shapes: 70 indices in [0, R + 3) (the last
+    three are padding) into 9 bags, unsorted, bags 4 and 8 empty."""
+    rng = np.random.default_rng(seed)
+    tab = rng.standard_normal((R, d)).astype(np.float32)
+    idx = rng.integers(0, R + 3, I).astype(np.int32)
+    bags = [b for b in range(B) if b not in EMPTY]
+    seg = rng.choice(bags, I).astype(np.int32)
+    w = rng.standard_normal(I).astype(np.float32) if weighted else None
+    return tab, idx, seg, w
+
+
+def jax_args(*arrays):
+    return [None if a is None else jnp.asarray(a) for a in arrays]
+
+
+def torch_args(*arrays):
+    return [None if a is None else torch.from_numpy(a) for a in arrays]
+
+
+def port_results(tab, idx, seg, w, num_bags=B, combiner="sum"):
+    """The port's plain version, its wrapper and the wrapper's sorted half,
+    on CPU tensors: no kernel launches."""
+    t, i, s, ww = torch_args(tab, idx, seg, w)
+    before = eb_ops.LAUNCHES
+    sg = segments(s, num_bags)
+    out = [port_embedding_bag_ref(t, i, s, num_bags, ww, combiner=combiner),
+           eb_ops.embedding_bag(t, i, s, num_bags, ww, combiner=combiner),
+           eb_ops.embedding_bag_sorted(
+               t, i[sg.order], sg.seg, None if ww is None else ww[sg.order],
+               sg.offsets, combiner=combiner)]
+    assert eb_ops.LAUNCHES == before
+    return [o.numpy() for o in out]
+
+
+@pytest.mark.parametrize("d", [1, 7, 10, 128, 200])
+@pytest.mark.parametrize("weighted", [False, True])
+def test_embedding_bag_matches_reference(d, weighted):
+    tab, idx, seg, w = inputs(d, weighted, d * 2 + weighted)
+    args = jax_args(tab, idx, seg, w)
+    want = np.asarray(embedding_bag_ref(*args[:3], B, args[3]))
+    kernel = np.asarray(embedding_bag(*args[:3], B, args[3],
+                                      use_pallas=True))
+    np.testing.assert_allclose(kernel, want, **TOL)
+    for got in port_results(tab, idx, seg, w):
+        assert got.shape == (B, d) and got.dtype == np.float32
+        np.testing.assert_allclose(got, want, **TOL)
+        np.testing.assert_allclose(got, kernel, **TOL)
+        assert not got[list(EMPTY)].any()             # empty bags are 0
+
+
+@pytest.mark.parametrize("d,weighted", [(1, False), (10, True), (128, True)])
+def test_embedding_bag_mean_matches_reference(d, weighted):
+    tab, idx, seg, w = inputs(d, weighted, 100 + d)
+    args = jax_args(tab, idx, seg, w)
+    want = np.asarray(embedding_bag(*args[:3], B, args[3], combiner="mean"))
+    kernel = np.asarray(embedding_bag(*args[:3], B, args[3],
+                                      combiner="mean", use_pallas=True))
+    np.testing.assert_allclose(kernel, want, **TOL)
+    for got in port_results(tab, idx, seg, w, combiner="mean"):
+        np.testing.assert_allclose(got, want, **TOL)
+
+
+def test_embedding_bag_mean_combiner():
+    """tests/test_kernels.py's case: bag 0 averages two rows of the
+    identity, bag 2 is empty and stays zero."""
+    tab = np.eye(6, dtype=np.float32)
+    idx = np.asarray([0, 1, 2, 3], np.int32)
+    seg = np.asarray([0, 0, 1, 1], np.int32)
+    for combiner in ("mean", "sum"):
+        want = np.asarray(embedding_bag(*jax_args(tab, idx, seg), 3,
+                                        combiner=combiner, use_pallas=True))
+        got = eb_ops.embedding_bag(*torch_args(tab, idx, seg), 3,
+                                   combiner=combiner).numpy()
+        np.testing.assert_allclose(got, want, **TOL)
+    assert np.allclose(got[0], [1, 1, 0, 0, 0, 0])
+    got = eb_ops.embedding_bag(*torch_args(tab, idx, seg), 3,
+                               combiner="mean").numpy()
+    assert np.allclose(got[0], [0.5, 0.5, 0, 0, 0, 0])
+    assert not got[2].any()
+
+
+def test_embedding_bag_negative_indices_and_dropped_segments():
+    """``seg = [0, 0, 1, 5, -1]`` into 3 bags gives bag 2 =
+    [0, 0] (the reference's plain version drops 5 and -1; its Pallas path
+    would give [6, 7]), and a negative index in [-R, 0) reads row R + i."""
+    tab = np.arange(12, dtype=np.float32).reshape(6, 2)
+    seg = np.asarray([0, 0, 1, 5, -1], np.int32)
+    for idx in ([0, 1, 2, 3, 4], [-1, -6, 2, 7, -3], [5, -2, -6, 0, 6]):
+        idx = np.asarray(idx, np.int32)
+        for w in (None, np.asarray([1.5, -2, 0.25, 3, 4], np.float32)):
+            for combiner in ("sum", "mean"):
+                want = np.asarray(embedding_bag(*jax_args(tab, idx, seg), 3,
+                                                *jax_args(w),
+                                                combiner=combiner))
+                for got in port_results(tab, idx, seg, w, 3, combiner):
+                    np.testing.assert_allclose(got, want, **TOL)
+    got = eb_ops.embedding_bag(*torch_args(tab, np.arange(5, dtype=np.int32),
+                                           seg), 3).numpy()
+    assert got.tolist() == [[2.0, 4.0], [4.0, 5.0], [0.0, 0.0]]
+    got = eb_ops.embedding_bag(*torch_args(
+        tab, np.asarray([-1, -6], np.int32), np.asarray([0, 1], np.int32)),
+        2).numpy()
+    assert got.tolist() == [[10.0, 11.0], [0.0, 1.0]]
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_embedding_bag_random_out_of_range_matches_plain_reference(seed):
+    """Indices in [-R, R + 5) and segment ids in [-2, B + 2), weighted:
+    equal to ``embedding_bag_ref``."""
+    rng = np.random.default_rng(seed)
+    d = int(rng.integers(1, 20))
+    tab = rng.standard_normal((R, d)).astype(np.float32)
+    idx = rng.integers(-R, R + 5, I).astype(np.int32)
+    seg = rng.integers(-2, B + 2, I).astype(np.int32)
+    w = rng.standard_normal(I).astype(np.float32)
+    want = np.asarray(embedding_bag_ref(*jax_args(tab, idx, seg), B,
+                                        jnp.asarray(w)))
+    for got in port_results(tab, idx, seg, w):
+        np.testing.assert_allclose(got, want, **TOL)
+
+
+def test_embedding_bag_no_entries():
+    tab = np.ones((5, 3), np.float32)
+    none = np.zeros((0,), np.int32)
+    for got in port_results(tab, none, none, None, 4, "mean"):
+        assert got.shape == (4, 3) and not got.any()
+
+
+@pytest.mark.parametrize("b,k", [(4, 5), (8, 39)])
+def test_fixed_hot_lookup_matches_reference(b, k):
+    rng = np.random.default_rng(b * k)
+    tab = rng.standard_normal((30, 8)).astype(np.float32)
+    ids = rng.integers(0, 30, (b, k)).astype(np.int32)
+    want = np.asarray(fixed_hot_lookup(*jax_args(tab, ids), use_pallas=True))
+    np.testing.assert_array_equal(
+        want, np.asarray(fixed_hot_lookup(*jax_args(tab, ids))))
+    got = eb_ops.fixed_hot_lookup(*torch_args(tab, ids))
+    assert got.shape == (b, k, 8)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_embedding_bag_rejects_unknown_combiner():
+    t, i = torch.zeros((3, 2)), torch.zeros((2,), dtype=torch.int32)
+    with pytest.raises(ValueError, match="combiner"):
+        eb_ops.embedding_bag(t, i, i, 2, combiner="max")
+
+
+def test_embedding_bag_cuda_launcher_rejects_cpu_tensors():
+    from repro_torch.kernels.embedding_bag import embedding_bag_cuda
+    tab = torch.zeros((4, 2))
+    idx = torch.zeros((3,), dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA"):
+        embedding_bag_cuda(tab, idx, None, torch.zeros((2,),
+                                                       dtype=torch.int32))
