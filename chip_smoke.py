@@ -9,7 +9,10 @@ Phases (any failure raises and the script exits non-zero):
 1. print the card's name and power limit; build the CUDA kernels with
    ``nvcc`` from ``src/repro_torch/csrc`` and time the build;
 2. hold each kernel against its plain PyTorch version on the card at the
-   main path's shapes (exact equality; ``spmm_segment`` also on two random
+   main path's shapes (exact equality; ``late_gather`` at the take of all
+   12 output columns at root 0's positions, at one column in each of
+   float32, int32 and bfloat16 and at DeepFM's lookup, each also with
+   negative positions mixed in; ``spmm_segment`` also on two random
    graphs with in-degree > 1 and on the tree's inbound view, whose vertex
    0 owns 83,619 edges, within rtol = atol = 1e-5; ``embedding_bag`` at
    four shapes, the first the full DeepFM table with the serve_bulk
@@ -85,7 +88,8 @@ from repro_torch.kernels.frontier_pull import ops as fp_ops  # noqa: E402
 from repro_torch.kernels.frontier_pull.ref import \
     frontier_pull_ref  # noqa: E402
 from repro_torch.kernels.late_gather import ops as lg_ops  # noqa: E402
-from repro_torch.kernels.late_gather.ref import late_gather_ref  # noqa: E402
+from repro_torch.kernels.late_gather.ref import \
+    late_gather_columns_ref  # noqa: E402
 from repro_torch.kernels.spmm_segment import ops as spmm_ops  # noqa: E402
 from repro_torch.kernels.spmm_segment.ref import \
     spmm_segment_ref  # noqa: E402
@@ -121,6 +125,7 @@ P99_BATCH, P99_REQUESTS = 512, 8
 BULK_BATCH = 262_144
 N_CANDIDATES = 1_000_000
 PARAM_SEED = 0
+NEG_SEED = 4                 # the negative positions of late_gather's checks
 
 
 class Request(NamedTuple):
@@ -265,8 +270,8 @@ def expected_launches(requests, results, num_vertices: int) -> dict:
     the hybrid engines, ``frontier_pull`` once per pull level, both only
     outside the fused ``both`` view (which has no kernel, as in the
     reference); ``spmm_segment`` once per executed level of a ``bitmap``
-    aggregate_sum request; ``late_gather`` once per output column per
-    request; ``embedding_bag`` never.  A hybrid level is sparse when its
+    aggregate_sum request; ``late_gather`` once per request (one take of
+    all its output columns); ``embedding_bag`` never.  A hybrid level is sparse when its
     frontier block, the rows first emitted at that level, is below
     :func:`hybrid_threshold`."""
     expand = pull = spmm = 0
@@ -289,8 +294,7 @@ def expected_launches(requests, results, num_vertices: int) -> dict:
             elif engine in ("hybrid", "diropt_hybrid") and \
                     widths[d] < hybrid_threshold(engine, num_vertices):
                 expand += 1
-    n_cols = len(query("precursive").out_cols)
-    return {"frontier_expand": expand, "late_gather": n_cols * len(requests),
+    return {"frontier_expand": expand, "late_gather": len(requests),
             "frontier_pull": pull, "spmm_segment": spmm, "embedding_bag": 0}
 
 
@@ -414,49 +418,86 @@ def frontier_expand_phase(ds, targets, valid, capacity, emitted, flush):
     }
 
 
-def late_gather_case(table: torch.Tensor, positions: torch.Tensor, flush):
-    got = lg_ops.late_gather(table, positions)
-    want = late_gather_ref(table, positions)
-    torch.cuda.synchronize()
-    require(got.dtype == want.dtype and torch.equal(got, want),
-            f"late_gather {table.dtype} {tuple(table.shape)} differs")
-    r, w = table.shape
+def with_negatives(positions: torch.Tensor, num_rows: int) -> torch.Tensor:
+    """A copy of ``positions`` with every 64th replaced by a negative from
+    a numpy seed: in [-R, 0), which counts from the end once, and every
+    16th of those below -R, which gives a zero row."""
+    rng = np.random.default_rng(NEG_SEED)
+    out = positions.clone()
+    n = out[::64].numel()
+    neg = -rng.integers(1, num_rows + 1, n)
+    neg[::16] = -num_rows - 1 - rng.integers(0, 1000, neg[::16].shape[0])
+    out[::64] = torch.from_numpy(neg.astype(np.int32)).to(out.device)
+    return out
+
+
+def late_gather_case(tables: list, positions: torch.Tensor, flush) -> dict:
+    """``late_gather_columns`` on ``tables`` held bit-equal to the plain
+    version at ``positions`` and at :func:`with_negatives` of them, then
+    timed at ``positions``.  ``library_ms`` is ``index_select``'s time for
+    one table; for several, no single call computes the function, and
+    ``index_select_sum_ms`` adds the per-column ``index_select`` times."""
+    r = tables[0].shape[0]
+    for pos in (positions, with_negatives(positions, r)):
+        got = lg_ops.late_gather_columns(tables, pos)
+        want = late_gather_columns_ref(tables, pos)
+        torch.cuda.synchronize()
+        for g, w, t in zip(got, want, tables):
+            require(g.dtype == w.dtype and g.shape == w.shape and torch.equal(
+                g.view(torch.uint8), w.view(torch.uint8)),
+                f"late_gather {t.dtype} {tuple(t.shape)} differs")
     p = positions.shape[0]
-    in_range = (positions >= 0) & (positions < r)
+    wrapped = torch.where(positions < 0, positions.long() + r,
+                          positions.long())
+    in_range = (wrapped >= 0) & (wrapped < r)
     live = int(in_range.sum())
-    rows = int(torch.unique(positions[in_range]).numel())
-    elt = table.element_size()
-    safe = positions.clamp(0, r - 1)
-    return {
-        "max_abs_err": max_abs_err(got, want),
-        "ms": time_ms(lambda: lg_ops.late_gather(table, positions), flush),
-        "plain_ms": time_ms(lambda: late_gather_ref(table, positions),
+    rows = int(torch.unique(wrapped[in_range]).numel())
+    row_bytes = sum(t.shape[1] * t.element_size() for t in tables)
+    safe = wrapped.clamp(0, r - 1)
+    selects = [time_ms(lambda t=t: torch.index_select(t, 0, safe), flush)
+               for t in tables]
+    case = {
+        "max_abs_err": max(max_abs_err(g, w) for g, w in zip(got, want)),
+        "ms": time_ms(lambda: lg_ops.late_gather_columns(tables, positions),
+                      flush),
+        "plain_ms": time_ms(lambda: late_gather_columns_ref(tables,
+                                                            positions),
                             flush),
-        "library_ms": time_ms(lambda: torch.index_select(table, 0, safe),
-                              flush),
-        # positions read once, each distinct live row read once, every
-        # output row written once
-        "bound_ms": bound_ms(p * 4 + rows * w * elt + p * w * elt),
+        "library_ms": selects[0] if len(tables) == 1 else None,
+        # positions read once, each distinct live row of each column read
+        # once, every output row written once
+        "bound_ms": bound_ms(p * 4 + rows * row_bytes + p * row_bytes),
         "bound_by": "bytes",
-        "shape": (f"R={r} W={w} P={p} live={live} rows={rows} "
-                  f"{str(table.dtype)[6:]}"),
+        "shape": (f"R={r} P={p} live={live} rows={rows} columns="
+                  + ",".join(f"{str(t.dtype)[6:]}x{t.shape[1]}"
+                             for t in tables)),
     }
+    if len(tables) > 1:
+        case["index_select_sum_ms"] = sum(selects)
+    return case
 
 
-def late_gather_phase(ds, positions, flush):
-    payload = ds.table.column("column1")
+def late_gather_phase(ds, positions, out_cols, flush):
+    """Root 0's result positions: all the query's output columns in one
+    take (the main path's call, and the kernel line's entry), and the
+    f32, int32 and bf16 one-column cases."""
+    table = ds.table
+    payload = table.column("column1")
     cases = {
-        "f32": late_gather_case(payload, positions, flush),
-        "int32": late_gather_case(ds.table.column("id")[:, None], positions,
+        "columns": late_gather_case(
+            [table.column(n).reshape(table.num_rows, -1) for n in out_cols],
+            positions, flush),
+        "f32": late_gather_case([payload], positions, flush),
+        "int32": late_gather_case([table.column("id")[:, None]], positions,
                                   flush),
-        "bf16": late_gather_case(payload.to(torch.bfloat16), positions,
+        "bf16": late_gather_case([payload.to(torch.bfloat16)], positions,
                                  flush),
     }
     entry = {
         "name": "late_gather", "route": "cuda",
         "source": "src/repro_torch/csrc/late_gather.cu",
         "replaces": "src/repro/kernels/late_gather/late_gather.py:34",
-        **cases["f32"],
+        **cases["columns"],
     }
     return entry, cases
 
@@ -1024,7 +1065,7 @@ def main() -> None:
     fe = frontier_expand_phase(ds, targets, valid, CAPS.frontier, emitted,
                                flush)
     lg, lg_cases = late_gather_phase(ds, expected[0].positions.to(DEVICE),
-                                     flush)
+                                     out_cols, flush)
     print("late_gather cases: " + json.dumps(lg_cases))
     diropt_root0 = expected_dense[DENSE_ENGINES.index("diropt") * 4]
     fp = frontier_pull_phase(ds, *pull_input(diropt_root0, cols,
@@ -1041,7 +1082,7 @@ def main() -> None:
     eb, eb_cases, (bag_idx, bag_seg, bag_sums) = embedding_bag_phase(
         params["table"], bulk_pos, flush)
     print("embedding_bag cases: " + json.dumps(eb_cases))
-    lg_deepfm = late_gather_case(params["table"], bag_idx, flush)
+    lg_deepfm = late_gather_case([params["table"]], bag_idx, flush)
     print("late_gather deepfm case: " + json.dumps(lg_deepfm))
     kernels = {"frontier_expand": fe, "late_gather": lg,
                "frontier_pull": fp, "spmm_segment": sp, "embedding_bag": eb}

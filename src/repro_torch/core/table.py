@@ -13,7 +13,7 @@ from typing import Dict, Mapping, Sequence
 import numpy as np
 import torch
 
-from ..kernels.late_gather.ops import late_gather
+from ..kernels.late_gather.ops import late_gather_columns
 
 __all__ = ["ColumnTable", "payload_names"]
 
@@ -28,8 +28,9 @@ class ColumnTable:
     """A columnar table: name -> (num_rows,) or (num_rows, k) tensor.
 
     All columns share the leading dimension and the device.  Gathers go
-    through :meth:`take`, where a position that is not a row (the padding
-    sentinel ``num_rows``) gathers a zero row."""
+    through :meth:`take`: a position in [-R, 0) counts from the end once,
+    and one that is not a row (the padding sentinel ``num_rows``, or one
+    below -R) gathers a zero row."""
 
     columns: Dict[str, torch.Tensor]
 
@@ -62,13 +63,14 @@ class ColumnTable:
              ) -> Dict[str, torch.Tensor]:
         """Gather ``positions`` (int32) from the requested columns.
 
-        Each column goes through the ``late_gather`` kernel in its own dtype
-        (a 1-D column as an (R, 1) table); out-of-range positions, the
-        padding sentinel, give zeros."""
+        All of them go through one ``late_gather_columns`` call, each in
+        its own dtype (a 1-D column as an (R, 1) table): on the card one
+        kernel launch per 32 columns.  A position in [-R, 0) counts from
+        the end once; one >= R (the padding sentinel) or below -R gives
+        zeros."""
         names = self.names if names is None else tuple(names)
-        out = {}
-        for name in names:
-            col = self.columns[name]
-            rows = late_gather(col.reshape(col.shape[0], -1), positions)
-            out[name] = rows.reshape(positions.shape + col.shape[1:])
-        return out
+        cols = [self.columns[name] for name in names]
+        rows = late_gather_columns(
+            [col.reshape(col.shape[0], -1) for col in cols], positions)
+        return {name: r.reshape(positions.shape + col.shape[1:])
+                for name, col, r in zip(names, cols, rows)}

@@ -68,8 +68,8 @@ def fixed_hot_lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     """(B, K) int32 ids -> (B, K, D) rows in the table's dtype: the DeepFM
     per-field lookup (one id per field, fields stacked), the degenerate
     bag.  A pure gather, through ``late_gather``: its kernel on CUDA
-    tensors, its plain version on CPU tensors; an id outside [0, R) gives
-    a zero row."""
+    tensors, its plain version on CPU tensors; an id in [-R, 0) counts
+    from the end once, one >= R or below -R gives a zero row."""
     b, k = ids.shape
     rows = late_gather(table, ids.reshape(-1).to(torch.int32))
     return rows.reshape(b, k, table.shape[1])

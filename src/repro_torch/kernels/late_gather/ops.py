@@ -1,26 +1,43 @@
-"""Public wrapper of the positional Materialize gather.
+"""Public wrappers of the positional Materialize gather.
 
-On a CPU tensor it runs the plain version (``ref.py``); on a CUDA tensor it
-launches the hand-written kernel or raises.  ``LAUNCHES`` counts kernel
+On CPU tensors they run the plain version (``ref.py``); on CUDA tensors
+they launch the hand-written kernel or raise.  ``LAUNCHES`` counts kernel
 launches, so a run can show that its path went through the kernel.
 """
 from __future__ import annotations
 
+from typing import Sequence
+
 import torch
 
-from .late_gather import late_gather_cuda
-from .ref import late_gather_ref
+from .late_gather import MAX_COLUMNS, late_gather_cuda
+from .ref import late_gather_columns_ref
 
 LAUNCHES = 0
 
 
-def late_gather(table: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
-    """(R, W) table, (P,) int32 positions -> (P, W) rows in the table's own
-    dtype; a zero row where a position is not a row of the table."""
+def late_gather_columns(tables: Sequence[torch.Tensor],
+                        positions: torch.Tensor) -> list[torch.Tensor]:
+    """(R, W_c) tables of one R, (P,) int32 positions -> the (P, W_c) rows
+    of each table in its own dtype: row p for 0 <= p < R, row p + R for
+    -R <= p < 0 (counted from the end once), a zero row for p >= R (the
+    padding sentinel ``num_rows``) or p < -R.  On the card one launch per
+    MAX_COLUMNS columns, none when the outputs are empty."""
     global LAUNCHES
-    if table.device.type == "cpu" and positions.device.type == "cpu":
-        return late_gather_ref(table, positions)
-    out = late_gather_cuda(table, positions)
-    if out.numel():
-        LAUNCHES += 1
-    return out
+    tables = list(tables)
+    if positions.device.type == "cpu" and \
+            all(t.device.type == "cpu" for t in tables):
+        return late_gather_columns_ref(tables, positions)
+    outs = []
+    for k in range(0, len(tables), MAX_COLUMNS):
+        group = late_gather_cuda(tables[k:k + MAX_COLUMNS], positions)
+        if any(o.numel() for o in group):
+            LAUNCHES += 1
+        outs += group
+    return outs
+
+
+def late_gather(table: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
+    """(R, W) table, (P,) int32 positions -> (P, W) rows: the one-column
+    case of :func:`late_gather_columns`."""
+    return late_gather_columns([table], positions)[0]

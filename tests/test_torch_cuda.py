@@ -36,8 +36,11 @@ from repro_torch.kernels.embedding_bag.ref import bag_cases, embedding_bag_ref
 from repro_torch.kernels.frontier_expand import ops as fe_ops
 from repro_torch.kernels.frontier_pull import ops as fp_ops
 from repro_torch.kernels.frontier_pull.ref import frontier_pull_ref
+from repro_torch.core.table import ColumnTable
+from repro_torch.kernels.late_gather import late_gather_cuda
 from repro_torch.kernels.late_gather import ops as lg_ops
-from repro_torch.kernels.late_gather.ref import late_gather_ref
+from repro_torch.kernels.late_gather.ref import (late_gather_columns_ref,
+                                                 late_gather_ref)
 from repro_torch.kernels.spmm_segment import ops as spmm_ops
 from repro_torch.kernels.spmm_segment.ref import spmm_segment_ref
 from repro_torch.models import recsys
@@ -64,6 +67,90 @@ def test_late_gather_kernel_matches_plain(cuda, dtype, r, w, p):
     torch.cuda.synchronize()
     assert lg_ops.LAUNCHES == before + 1
     assert torch.equal(got.cpu(), late_gather_ref(tab, pos))
+
+
+# (dtype, width) of each column of a fused gather
+LG_COLUMNS = {
+    "mixed": [(torch.int32, 1), (torch.float32, 4), (torch.float32, 5),
+              (torch.bfloat16, 3), (torch.bfloat16, 128), (torch.int32, 10)],
+    "widths": [(torch.float32, w) for w in (1, 3, 4, 5, 10, 37, 128)],
+    # row bytes 2, 6, 10, 12, 148: only 2- or 4-byte copies divide them
+    "narrow": [(torch.bfloat16, 1), (torch.bfloat16, 3),
+               (torch.bfloat16, 5), (torch.int32, 3), (torch.float32, 37)],
+    # 16-byte rows at an address 4 bytes past the allocation: 4-byte copies
+    "offset": [(torch.float32, 4), (torch.int32, 4), (torch.float32, 8)],
+    "40 columns": [((torch.float32, torch.int32, torch.bfloat16)[k % 3],
+                    (1, 3, 4, 5, 10)[k % 5]) for k in range(40)],
+}
+
+
+def lg_table(rng, dtype, r: int, w: int, offset: bool, device
+             ) -> torch.Tensor:
+    if dtype == torch.int32:
+        tab = torch.from_numpy(rng.integers(-2 ** 31, 2 ** 31 - 1, (r, w))
+                               .astype(np.int32))
+    else:
+        tab = torch.from_numpy(rng.standard_normal((r, w)) * 10).to(dtype)
+    if not offset:
+        return tab.to(device)
+    # the same values one element past an aligned address
+    flat = torch.empty(r * w + 1, dtype=dtype, device=device)
+    flat[1:] = tab.reshape(-1).to(device)
+    return flat[1:].view(r, w)
+
+
+def as_bits(t: torch.Tensor) -> torch.Tensor:
+    return t.view({2: torch.int16, 4: torch.int32}[t.element_size()])
+
+
+@pytest.mark.parametrize("p", [0, 1, 300, 5000])
+@pytest.mark.parametrize("case", list(LG_COLUMNS))
+def test_late_gather_columns_kernel_matches_plain(cuda, case, p):
+    """The fused kernel against its plain version on the same card
+    tensors, bit for bit, at positions below -R, in [-R, 0), in [0, R) and
+    >= R; one launch per 32 columns, none for P = 0."""
+    r = 1000
+    rng = np.random.default_rng(len(case) * 100 + p)
+    tabs = [lg_table(rng, dt, r, w, case == "offset", cuda)
+            for dt, w in LG_COLUMNS[case]]
+    pos_np = rng.integers(-r - 3, r + 6, p).astype(np.int32)
+    pos_np[:min(p, 4)] = [-r - 1, -r, -1, r][:min(p, 4)]
+    pos = torch.from_numpy(pos_np).to(cuda)
+    before = lg_ops.LAUNCHES
+    got = lg_ops.late_gather_columns(tabs, pos)
+    want = late_gather_columns_ref(tabs, pos)
+    torch.cuda.synchronize()
+    assert lg_ops.LAUNCHES == before + (-(-len(tabs) // 32) if p else 0)
+    for g, w, t in zip(got, want, tabs):
+        assert g.dtype == t.dtype and g.shape == (p, t.shape[1])
+        assert torch.equal(as_bits(g), as_bits(w))
+
+
+def test_column_table_take_launches_once(cuda):
+    """One ``take`` of a tree table's 12 output columns, negative positions
+    among them, makes one launch and equals the CPU table's take."""
+    spec = TreeSpec(num_vertices=3000, height=10, payload_cols=8, seed=5)
+    cols = make_edge_table(spec)
+    names = RecursiveQuery("precursive", 4, 8, EngineCaps(64, 64)).out_cols
+    pos = torch.from_numpy(np.random.default_rng(5).integers(
+        -3100, 3100, 4096).astype(np.int32))
+    want = ColumnTable.from_numpy(cols, "cpu").take(pos, names)
+    before = lg_ops.LAUNCHES
+    got = ColumnTable.from_numpy(cols, cuda).take(pos.to(cuda), names)
+    torch.cuda.synchronize()
+    assert lg_ops.LAUNCHES == before + 1
+    assert list(got) == list(names)
+    for name in names:
+        assert torch.equal(got[name].cpu(), want[name]), name
+
+
+def test_late_gather_cuda_launcher_rejects_host_tensors(cuda):
+    tab = torch.zeros((4, 3), dtype=torch.float32)
+    pos = torch.zeros((2,), dtype=torch.int32)
+    for tables, positions in (([tab], pos), ([tab.to(cuda)], pos),
+                              ([tab.to(cuda), tab], pos.to(cuda))):
+        with pytest.raises(ValueError, match="CUDA"):
+            late_gather_cuda(tables, positions)
 
 
 @pytest.mark.parametrize("seed", range(10))

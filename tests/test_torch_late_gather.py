@@ -1,9 +1,12 @@
-"""The port's plain ``late_gather`` against the JAX Pallas kernel (interpret
-mode, as tests/test_kernels.py runs it) and the JAX oracle.
+"""The port's plain ``late_gather`` and ``late_gather_columns`` against the
+JAX Pallas kernel (interpret mode, as tests/test_kernels.py runs it) and
+the JAX oracle.
 
 Inputs are made with numpy from a seed and handed to both packages.  A
 gather does no arithmetic, so equality is exact, bit for bit (the
-tolerance is 0).
+tolerance is 0).  A position in [-R, 0) counts from the end once in both
+JAX paths and in the port; below -R the two JAX paths disagree (NaN
+against row 0), and the port gives a zero row.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -11,8 +14,14 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro.kernels.embedding_bag.ops import \
+    fixed_hot_lookup as jax_fixed_hot_lookup
 from repro.kernels.late_gather import late_gather_pallas, late_gather_ref
+from repro.kernels.late_gather.ops import late_gather as jax_late_gather
+from repro_torch.core.table import ColumnTable
+from repro_torch.kernels.embedding_bag.ops import fixed_hot_lookup
 from repro_torch.kernels.late_gather import late_gather as port_late_gather
+from repro_torch.kernels.late_gather import late_gather_columns
 from repro_torch.kernels.late_gather.ref import \
     late_gather_ref as port_late_gather_ref
 
@@ -71,9 +80,13 @@ def test_late_gather_wrapper_takes_plain_version_on_cpu():
     from repro_torch.kernels.late_gather import ops
     before = ops.LAUNCHES
     tab = torch.arange(12, dtype=torch.float32).reshape(4, 3)
-    pos = torch.tensor([3, 4, 0], dtype=torch.int32)
+    pos = torch.tensor([3, 4, 0, -1, -5], dtype=torch.int32)
     assert torch.equal(port_late_gather(tab, pos),
                        port_late_gather_ref(tab, pos))
+    got = late_gather_columns([tab, tab[:, :1].to(torch.int32)], pos)
+    assert torch.equal(got[0], port_late_gather_ref(tab, pos))
+    assert got[1][:, 0].tolist() == [9, 0, 0, 9, 0]
+    assert late_gather_columns([], pos) == []
     assert ops.LAUNCHES == before          # no kernel ran on the CPU
 
 
@@ -81,4 +94,96 @@ def test_late_gather_cuda_launcher_rejects_cpu_tensors():
     from repro_torch.kernels.late_gather import late_gather_cuda
     tab = torch.zeros((4, 3), dtype=torch.float32)
     with pytest.raises(ValueError, match="CUDA"):
-        late_gather_cuda(tab, torch.zeros((2,), dtype=torch.int32))
+        late_gather_cuda([tab], torch.zeros((2,), dtype=torch.int32))
+
+
+def test_late_gather_cuda_launcher_rejects_more_than_32_columns():
+    from repro_torch.kernels.late_gather import late_gather_cuda
+    tab = torch.zeros((4, 3), dtype=torch.float32)
+    with pytest.raises(ValueError, match="at most 32"):
+        late_gather_cuda([tab] * 33, torch.zeros((2,), dtype=torch.int32))
+
+
+def edge_positions(r: int) -> np.ndarray:
+    """Every edge of the wrap rule: below -R, -R, -1, 0, R - 1, R, past R."""
+    return np.array([-r - 1, -r, -1, 0, r - 1, r, r + 5], dtype=np.int32)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("r,w", [(6, 2), (64, 37), (33, 260)])
+def test_late_gather_negative_positions_match_pallas_and_ref(dtype, r, w):
+    """A position in [-R, 0) gathers row p + R in both JAX paths and the
+    port, bit for bit; the JAX paths agree on every position >= -R, and
+    below -R the port gives a zero row."""
+    jdt, _, unsigned = DTYPES[dtype]
+    rng = np.random.default_rng(r * w)
+    tab = jnp.asarray(rng.standard_normal((r, w)) * 10).astype(jdt)
+    pos_np = np.concatenate([edge_positions(r),
+                             rng.integers(-r, r + 5, 40).astype(np.int32)])
+    want_pallas = bits(late_gather_pallas(tab, jnp.asarray(pos_np)),
+                       unsigned)
+    want_ref = bits(late_gather_ref(tab, jnp.asarray(pos_np)), unsigned)
+    got = bits(port_late_gather(to_torch(tab), torch.from_numpy(pos_np)),
+               unsigned)
+    inside = pos_np >= -r
+    np.testing.assert_array_equal(want_pallas[inside], want_ref[inside])
+    np.testing.assert_array_equal(got[inside], want_ref[inside])
+    assert not got[~inside].any()
+
+
+def mixed_columns(r: int, rng) -> list:
+    """The columns of a ``take``: 1-D int32 ids above 2^24, (R, 4) and
+    (R, 5) float32, (R, 3) bfloat16 (6-byte rows), as JAX arrays."""
+    return [jnp.asarray(rng.integers(2 ** 24, 2 ** 31 - 1, r)
+                        .astype(np.int32)),
+            jnp.asarray(rng.standard_normal((r, 4)).astype(np.float32)),
+            jnp.asarray(rng.standard_normal((r, 5)).astype(np.float32)),
+            jnp.asarray(rng.standard_normal((r, 3))).astype(jnp.bfloat16)]
+
+
+@pytest.mark.parametrize("use_pallas", [False, True])
+def test_late_gather_columns_matches_jax_per_column(use_pallas):
+    """``late_gather_columns``' plain version on mixed columns equals the
+    JAX ``late_gather`` run on each column alone (1-D as (R, 1)), bit for
+    bit, at positions in [-R, R + 5]."""
+    r = 50
+    rng = np.random.default_rng(7)
+    cols = mixed_columns(r, rng)
+    pos_np = np.concatenate([edge_positions(r)[1:],
+                             rng.integers(-r, r + 6, 60).astype(np.int32)])
+    tables = [c.reshape(r, -1) for c in cols]
+    got = late_gather_columns([to_torch(t) for t in tables],
+                              torch.from_numpy(pos_np))
+    assert len(got) == len(tables)
+    for g, t in zip(got, tables):
+        want = jax_late_gather(t, jnp.asarray(pos_np), use_pallas=use_pallas)
+        unsigned = np.uint16 if t.dtype == jnp.bfloat16 else np.uint32
+        assert g.dtype == to_torch(t).dtype
+        np.testing.assert_array_equal(bits(g, unsigned), bits(want, unsigned))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("use_pallas", [False, True])
+def test_take_and_fixed_hot_lookup_match_jax_fixed_hot_lookup(dtype,
+                                                              use_pallas):
+    """The port's ``fixed_hot_lookup`` and ``ColumnTable.take`` with ids in
+    [-R, R + 3] equal the reference's ``fixed_hot_lookup`` on its plain
+    path and its Pallas path, bit for bit."""
+    jdt, _, unsigned = DTYPES[dtype]
+    r, d, b, k = 40, 10, 6, 9
+    rng = np.random.default_rng(11)
+    tab = jnp.asarray(rng.standard_normal((r, d))).astype(jdt)
+    ids = rng.integers(-r, r + 4, (b, k)).astype(np.int32)
+    ids[0, :4] = [-r, -1, r, r + 3]
+    want = bits(jax_fixed_hot_lookup(tab, jnp.asarray(ids),
+                                     use_pallas=use_pallas), unsigned)
+    got = fixed_hot_lookup(to_torch(tab), torch.from_numpy(ids))
+    assert tuple(got.shape) == (b, k, d)
+    np.testing.assert_array_equal(bits(got, unsigned), want)
+    table = ColumnTable({"emb": to_torch(tab),
+                         "id": torch.arange(r, dtype=torch.int32)})
+    taken = table.take(torch.from_numpy(ids.reshape(-1)))
+    np.testing.assert_array_equal(
+        bits(taken["emb"], unsigned).reshape(b, k, d), want)
+    wrapped = np.where(ids < 0, ids + r, ids).reshape(-1)
+    assert taken["id"].tolist() == np.where(wrapped < r, wrapped, 0).tolist()
