@@ -9,16 +9,22 @@ Phases (any failure raises and the script exits non-zero):
 1. print the card's name and power limit; build the CUDA kernels with
    ``nvcc`` from ``src/repro_torch/csrc`` and time the build;
 2. hold each kernel against its plain PyTorch version on the card at the
-   main path's shapes (exact equality; ``late_gather`` at the take of all
-   12 output columns at root 0's positions, at one column in each of
-   float32, int32 and bfloat16 and at DeepFM's lookup, each also with
-   negative positions mixed in; ``spmm_segment`` also on two random
-   graphs with in-degree > 1 and on the tree's inbound view, whose vertex
-   0 owns 83,619 edges, within rtol = atol = 1e-5; ``embedding_bag`` at
-   four shapes, the first the full DeepFM table with the serve_bulk
-   batch's 39 positions per sample as bags, within 1e-5 of each bag's sum
-   of absolute terms), and time the kernel, the plain version and, where
-   one exists, a single PyTorch library call;
+   main path's shapes (exact equality; ``frontier_expand`` at root 0's
+   widest level and at the seeded cases that split its tiles
+   (``expand_case``: F beside the 2,048-target scan tile, a zero-degree
+   run longer than a tile, a hub across output tiles, a total on an
+   output tile edge, cuts, out-of-range valid targets, F = 1, F = 0,
+   E = 0), its device launches per call and its kernels' times read
+   from ``torch.profiler`` after phase 3's profile lines; ``late_gather``
+   at the take of all 12 output columns at root 0's positions, at one
+   column in each of float32, int32 and bfloat16 and at DeepFM's lookup,
+   each also with negative positions mixed in; ``spmm_segment`` also on
+   two random graphs with in-degree > 1 and on the tree's inbound view,
+   whose vertex 0 owns 83,619 edges, within rtol = atol = 1e-5;
+   ``embedding_bag`` at four shapes, the first the full DeepFM table with
+   the serve_bulk batch's 39 positions per sample as bags, within 1e-5 of
+   each bag's sum of absolute terms), and time the kernel, the plain
+   version and, where one exists, a single PyTorch library call;
 3. drive three paths at full size on the repo's own deployment
    (``src/repro/configs/posdb_bfs.py``: 2^20-vertex tree of height 16,
    8 payload columns, depth 16, result cap 2^20, plus a float32 edge
@@ -66,7 +72,7 @@ from repro_torch.configs.deepfm import CONFIG as DEEPFM  # noqa: E402
 from repro_torch.convert import dataset_from_numpy  # noqa: E402
 from repro_torch.core.bitmap import (diropt_hybrid_plan,  # noqa: E402
                                      diropt_plan)
-from repro_torch.core.csr import csr_degrees, expand_frontier  # noqa: E402
+from repro_torch.core.csr import build_csr, expand_frontier  # noqa: E402
 from repro_torch.core.engine import (PUSH_COUNTERPART,  # noqa: E402
                                      EngineCaps, RecursiveQuery, build_plan,
                                      run_query)
@@ -82,8 +88,8 @@ from repro_torch.kernels.embedding_bag.ops import \
 from repro_torch.kernels.embedding_bag.ref import (bag_cases,  # noqa: E402
                                                     embedding_bag_ref)
 from repro_torch.kernels.frontier_expand import ops as fe_ops  # noqa: E402
-from repro_torch.kernels.frontier_expand.frontier_expand import \
-    expand_index_cuda  # noqa: E402
+from repro_torch.kernels.frontier_expand.ref import (  # noqa: E402
+    EXPAND_CASES, expand_case)
 from repro_torch.kernels.frontier_pull import ops as fp_ops  # noqa: E402
 from repro_torch.kernels.frontier_pull.ref import \
     frontier_pull_ref  # noqa: E402
@@ -381,41 +387,103 @@ def widest_level(r0, cols: dict, capacity: int):
 # phase 2: kernels against their plain versions, at the main path's shapes
 # ---------------------------------------------------------------------------
 
+def expand_profile(fn, flush) -> dict:
+    """The device launches of one call of ``fn``, and the mean device time
+    of each of its kernels over TIMING_REPS calls with the L2 evicted
+    before each, from ``torch.profiler``.  Run after the profile lines: an
+    earlier profiler session changes their event counts."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    def device_events(prof):
+        return [e for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA]
+
+    activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=activities) as prof:
+        fn()
+        torch.cuda.synchronize()
+    launches = sum(e.count for e in device_events(prof))
+    require(launches == 3, f"frontier_expand: {launches} device launches "
+            "in one call, want 3")
+    with profile(activities=activities) as prof:
+        for _ in range(TIMING_REPS):
+            flush.zero_()
+            fn()
+        torch.cuda.synchronize()
+    by_kernel = {name: [e.self_device_time_total / e.count / 1e3
+                        for e in device_events(prof) if name in e.key]
+                 for name in ("frontier_degree_sums", "frontier_scan_ends",
+                              "frontier_expand_slots")}
+    require(all(len(ms) == 1 for ms in by_kernel.values()),
+            f"frontier_expand: the profiler's kernels {by_kernel}")
+    return {"expand_only_ms": by_kernel["frontier_expand_slots"][0],
+            "device_launches_per_call": launches,
+            "device_ms_by_kernel": {k: v[0] for k, v in by_kernel.items()}}
+
+
+def expand_cases_on_card() -> dict:
+    """Each :func:`expand_case` on the card: the kernel route bit-equal to
+    the plain version in all three outputs.  Returns each case's F,
+    capacity, count and overflow."""
+    cases = {}
+    for case in EXPAND_CASES:
+        src, v, targets, valid, capacity = expand_case(case)
+        csr = build_csr(torch.from_numpy(src).to(DEVICE), v)
+        t = torch.from_numpy(targets).to(DEVICE)
+        m = torch.from_numpy(valid).to(DEVICE)
+        got = fe_ops.frontier_expand_fused(csr, t, m, capacity)
+        want = expand_frontier(csr, t, m, capacity)
+        torch.cuda.synchronize()
+        for g, w, name in zip(got, want, ("positions", "total", "overflow")):
+            require(g.dtype == w.dtype and g.shape == w.shape
+                    and torch.equal(g, w),
+                    f"frontier_expand case {case}: {name} differs")
+        cases[case] = {"F": targets.shape[0], "capacity": capacity,
+                       "count": int(got[1]), "overflow": bool(got[2])}
+    return cases
+
+
 def frontier_expand_phase(ds, targets, valid, capacity, emitted, flush):
+    """Root 0's widest level (the kernel line's entry) and the tile cases,
+    each bit-equal to the plain version; then the wrapper's and the plain
+    version's times at the widest level.  Returns the entry, the cases and
+    the widest level's call, for :func:`expand_profile`."""
     csr = ds.csr
     t, v = targets.to(DEVICE), valid.to(DEVICE)
     got = fe_ops.frontier_expand_fused(csr, t, v, capacity)
     want = expand_frontier(csr, t, v, capacity)
     torch.cuda.synchronize()
     for g, w, name in zip(got, want, ("positions", "total", "overflow")):
-        require(torch.equal(g, w), f"frontier_expand: {name} differs")
+        require(g.dtype == w.dtype and torch.equal(g, w),
+                f"frontier_expand: {name} differs")
     require(int(got[1]) == emitted, "frontier_expand: level total")
     err = max_abs_err(got[0], want[0])
+    cases = expand_cases_on_card()
 
-    deg = csr_degrees(csr, t, v)
-    ends = torch.cumsum(deg, 0, dtype=torch.int32)
-    estart = torch.where(deg > 0, csr.indptr[t.clamp(0)], 0)
-    live = int(v.sum())
+    def call():
+        return fe_ops.frontier_expand_fused(csr, t, v, capacity)
+
+    f, live = t.shape[0], int(v.sum())
     # targets + valid read once, two indptr entries per live target, the
     # reached perm entries, the (capacity,) output written once
-    nbytes = capacity * 5 + live * 8 + min(emitted, capacity) * 4 \
-        + capacity * 4
-    return {
+    nbytes = f * 5 + live * 8 + min(emitted, capacity) * 4 + capacity * 4
+    entry = {
         "name": "frontier_expand", "route": "cuda",
         "source": "src/repro_torch/csrc/frontier_expand.cu",
         "replaces": "src/repro/kernels/frontier_expand/frontier_expand.py:84",
         "max_abs_err": err,
-        "ms": time_ms(lambda: fe_ops.frontier_expand_fused(csr, t, v,
-                                                           capacity), flush),
-        "kernel_only_ms": time_ms(lambda: expand_index_cuda(
-            ends, estart, deg, csr.perm, capacity), flush),
+        "ms": time_ms(call, flush),
         "plain_ms": time_ms(lambda: expand_frontier(csr, t, v, capacity),
                             flush),
         "bound_ms": bound_ms(nbytes), "bound_by": "bytes",
         "library_ms": None,
-        "shape": f"F={capacity} live={live} emitted={emitted} "
-                 f"E={csr.num_edges}",
+        "shape": f"F={f} capacity={capacity} live={live} "
+                 f"emitted={emitted} E={csr.num_edges}",
     }
+    return entry, cases, call
 
 
 def with_negatives(positions: torch.Tensor, num_rows: int) -> torch.Tensor:
@@ -1062,8 +1130,9 @@ def main() -> None:
                                                   CAPS.frontier)
     print(f"frontier_expand input: level {level} of root 0, "
           f"{int(valid.sum())} targets -> {emitted} edges")
-    fe = frontier_expand_phase(ds, targets, valid, CAPS.frontier, emitted,
-                               flush)
+    fe, fe_cases, fe_call = frontier_expand_phase(
+        ds, targets, valid, CAPS.frontier, emitted, flush)
+    print("frontier_expand cases: " + json.dumps(fe_cases))
     lg, lg_cases = late_gather_phase(ds, expected[0].positions.to(DEVICE),
                                      out_cols, flush)
     print("late_gather cases: " + json.dumps(lg_cases))
@@ -1215,6 +1284,7 @@ def main() -> None:
               f"clock, the features' copy to the card included)")
         print("profile: " + json.dumps(profile_call(str(req), fn, ms)))
 
+    fe.update(expand_profile(fe_call, flush))
     print(f"script: {time.perf_counter() - t_start:.3f} s from the build "
           f"on (host clock)")
     print(json.dumps({"kernels": list(kernels.values())}))

@@ -33,6 +33,8 @@ from repro_torch.configs.deepfm import SMOKE
 from repro_torch.data.recsys_stream import recsys_batch, vocab_sizes
 from repro_torch.kernels.embedding_bag import ops as eb_ops
 from repro_torch.kernels.embedding_bag.ref import bag_cases, embedding_bag_ref
+from repro_torch.kernels.frontier_expand import (EXPAND_CASES, expand_case,
+                                                 frontier_expand_cuda)
 from repro_torch.kernels.frontier_expand import ops as fe_ops
 from repro_torch.kernels.frontier_pull import ops as fp_ops
 from repro_torch.kernels.frontier_pull.ref import frontier_pull_ref
@@ -171,6 +173,99 @@ def test_frontier_expand_kernel_matches_plain(cuda, seed):
     assert fe_ops.LAUNCHES == before + 1
     for g, w in zip(got, want):
         assert torch.equal(g.cpu(), w)
+
+
+def check_expand_on_card(src, v, targets, valid, capacity, cuda):
+    """The kernel route and the plain version on the same card tensors:
+    all three outputs equal in value, dtype and shape, one more launch."""
+    csr = build_csr(torch.from_numpy(src).to(cuda), v)
+    t, m = torch.from_numpy(targets).to(cuda), torch.from_numpy(valid).to(cuda)
+    want = expand_frontier(csr, t, m, capacity)
+    before = fe_ops.LAUNCHES
+    got = fe_ops.frontier_expand_fused(csr, t, m, capacity)
+    torch.cuda.synchronize()
+    assert fe_ops.LAUNCHES == before + 1
+    for g, w in zip(got, want):
+        assert g.device == w.device and g.dtype == w.dtype
+        assert g.shape == w.shape and torch.equal(g, w)
+
+
+@pytest.mark.parametrize("case", EXPAND_CASES)
+def test_frontier_expand_tile_cases_on_card(cuda, case):
+    """F beside the 2,048-target scan tile, a zero-degree run longer than a
+    tile, a hub across output tiles, a total on an output tile edge, cuts,
+    out-of-range valid targets, F = 1, F = 0 and E = 0."""
+    check_expand_on_card(*expand_case(case), cuda)
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_frontier_expand_large_random_on_card(cuda, seed):
+    """Random frontiers up to F = 2^18 + 3 over a 2^20-vertex graph; seed
+    0 is the engine's shape, F = 2^18 + 3 into capacity 2^18."""
+    rng = np.random.default_rng(seed + 60)
+    v = 1 << 20
+    e = int(rng.integers(1 << 20, 1 << 22))
+    f = (1 << 18) + 3 if seed == 0 else int(rng.integers(1, (1 << 18) + 4))
+    src = rng.integers(0, v, e).astype(np.int32)
+    targets = rng.integers(-1, v + 1, f).astype(np.int32)
+    valid = rng.random(f) < 0.8
+    cap = 1 << 18 if seed == 0 else int(rng.integers(0, 6 * f))
+    check_expand_on_card(src, v, targets, valid, cap, cuda)
+
+
+def test_frontier_expand_three_device_launches(cuda):
+    """One call on the card is three device launches, counted by
+    torch.profiler, and no torch op but the outputs' allocations."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Ops(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.seen = set()
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.seen.add(str(func))
+            return func(*args, **(kwargs or {}))
+
+    src, v, targets, valid, capacity = expand_case("f4097")
+    csr = build_csr(torch.from_numpy(src).to(cuda), v)
+    t, m = torch.from_numpy(targets).to(cuda), torch.from_numpy(valid).to(cuda)
+    fe_ops.frontier_expand_fused(csr, t, m, capacity)
+    torch.cuda.synchronize()
+    with Ops() as ops:
+        fe_ops.frontier_expand_fused(csr, t, m, capacity)
+    assert ops.seen == {"aten.empty.memory_format"}
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fe_ops.frontier_expand_fused(csr, t, m, capacity)
+        torch.cuda.synchronize()
+    launched = {e.key: e.count for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA}
+    assert sum(launched.values()) == 3, launched
+    for name in ("frontier_degree_sums", "frontier_scan_ends",
+                 "frontier_expand_slots"):
+        assert any(name in k for k in launched), (name, launched)
+
+
+def test_frontier_expand_cuda_launcher_rejects(cuda):
+    """Host tensors, inputs split across devices and wrong dtypes raise."""
+    csr = build_csr(torch.tensor([0, 1, 1, 2], dtype=torch.int32), 3)
+    t = torch.tensor([0, 1, 2], dtype=torch.int32)
+    m = torch.ones(3, dtype=torch.bool)
+    indptr, perm = csr.indptr.to(cuda), csr.perm.to(cuda)
+    with pytest.raises(ValueError, match="CUDA"):
+        frontier_expand_cuda(csr.indptr, csr.perm, t, m, 4)
+    with pytest.raises(ValueError, match="CUDA"):
+        frontier_expand_cuda(indptr, perm, t, m.to(cuda), 4)
+    with pytest.raises(TypeError, match="int32"):
+        frontier_expand_cuda(indptr, perm, t.long().to(cuda), m.to(cuda), 4)
+    with pytest.raises(TypeError, match="bool"):
+        frontier_expand_cuda(indptr, perm, t.to(cuda),
+                             m.to(torch.uint8).to(cuda), 4)
+    with pytest.raises(ValueError, match="CUDA"):
+        fe_ops.frontier_expand_fused(csr, t.to(cuda), m.to(cuda), 4)
 
 
 @pytest.mark.parametrize("seed", range(10))

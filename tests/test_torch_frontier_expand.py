@@ -2,7 +2,9 @@
 (``frontier_expand_fused``, interpret mode) and the JAX engine's
 ``expand_frontier``, on random graphs and frontiers in the manner of
 tests/test_kernels.py, plus the edge cases of ``csr.py``: no valid target,
-``total == capacity``, ``total > capacity``, degree-0 and ``-1`` targets.
+``total == capacity``, ``total > capacity``, degree-0 and ``-1`` targets,
+and the shapes that split the card kernel's tiles (``expand_case``) against
+the JAX engine's plain ``expand_frontier``.
 
 Positions, total and overflow must be exactly equal.
 """
@@ -18,6 +20,7 @@ from repro_torch.core.csr import build_csr as port_build_csr
 from repro_torch.core.csr import expand_frontier as port_expand_frontier
 from repro_torch.kernels.frontier_expand import \
     frontier_expand_fused as port_frontier_expand_fused
+from repro_torch.kernels.frontier_expand import EXPAND_CASES, expand_case
 
 # one edge count and frontier size for every seed, and capacities from a
 # short list, so the interpret-mode Pallas kernel compiles a few times only
@@ -88,3 +91,30 @@ def test_frontier_expand_degree_zero_and_negative_targets():
 
 def test_frontier_expand_frontier_larger_than_capacity():
     assert edge_case([1] * EDGE_FRONTIER, [1] * EDGE_FRONTIER) == (8, True)
+
+
+# the reference's plain version raises at F = 0 and E = 0 (a gather from an
+# empty array); tests/test_torch_cuda.py holds the kernel to the port's
+# plain version there
+TILE_CASES = [c for c in EXPAND_CASES if c not in ("f0", "e0")]
+
+
+@pytest.mark.parametrize("case", TILE_CASES)
+def test_frontier_expand_tile_cases_match_reference(case):
+    """F beside the 2,048-target scan tile, a zero-degree run longer than a
+    tile, a hub whose range spans several 256-slot output tiles, a total on
+    an output tile edge, cuts, out-of-range valid targets and F = 1: the
+    port's plain version and its CPU wrapper equal the JAX engine's plain
+    ``expand_frontier``."""
+    src, v, targets, valid, capacity = expand_case(case)
+    csr = build_csr(jnp.asarray(src), v)
+    want = [np.asarray(x) for x in expand_frontier(
+        csr, jnp.asarray(targets), jnp.asarray(valid), capacity)]
+    pcsr = port_build_csr(torch.from_numpy(src), v)
+    pt, pv = torch.from_numpy(targets), torch.from_numpy(valid)
+    for fn in (port_expand_frontier, port_frontier_expand_fused):
+        got = [x.numpy() for x in fn(pcsr, pt, pv, capacity)]
+        assert got[0].dtype == np.int32 and got[0].shape == (capacity,)
+        assert got[1].dtype == np.int32 and got[2].dtype == np.bool_
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g, w)
