@@ -18,9 +18,18 @@ Phases (any failure raises and the script exits non-zero):
    from ``torch.profiler`` after phase 3's profile lines; ``late_gather``
    at the take of all 12 output columns at root 0's positions, at one
    column in each of float32, int32 and bfloat16 and at DeepFM's lookup,
-   each also with negative positions mixed in; ``spmm_segment`` also on
-   two random graphs with in-degree > 1 and on the tree's inbound view,
-   whose vertex 0 owns 83,619 edges, within rtol = atol = 1e-5;
+   each also with negative positions mixed in; ``spmm_segment`` at root
+   0's widest ``bitmap`` aggregate_sum level (exact), on two random graphs
+   with in-degree > 1 (within rtol = atol = 1e-5), on the tree's inbound
+   view, whose vertex 0 owns 83,619 edges, at D = 1 (d) and at
+   GraphSAGE-Reddit's D = 128 (e) (within 1e-5 of each row's sum of
+   absolute terms), and on the shared tile cases (``spmm_tile_case``:
+   hubs beside the tile starts and the hub threshold, medium rows,
+   dropped edges, E < P, E = 0, no row) at D = 1, 4, 17 and 128 (rows of
+   at most 32 edges equal to the CPU run, the rest within 1e-5 of their
+   absolute sums, two calls bit-equal), with its device launches per
+   call and its kernels' times at (a) and (d) read from
+   ``torch.profiler`` after phase 3's profile lines;
    ``embedding_bag`` at four shapes, the first the full DeepFM table with
    the serve_bulk batch's 39 positions per sample as bags, within 1e-5 of
    each bag's sum of absolute terms), and time the kernel, the plain
@@ -387,11 +396,12 @@ def widest_level(r0, cols: dict, capacity: int):
 # phase 2: kernels against their plain versions, at the main path's shapes
 # ---------------------------------------------------------------------------
 
-def expand_profile(fn, flush) -> dict:
+def device_profile(fn, flush) -> tuple[int, dict]:
     """The device launches of one call of ``fn``, and the mean device time
-    of each of its kernels over TIMING_REPS calls with the L2 evicted
-    before each, from ``torch.profiler``.  Run after the profile lines: an
-    earlier profiler session changes their event counts."""
+    of each of its kernels, by the profiler's name, over TIMING_REPS calls
+    with the L2 evicted before each, from ``torch.profiler``.  Run after
+    the profile lines: an earlier profiler session changes their event
+    counts."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -405,23 +415,59 @@ def expand_profile(fn, flush) -> dict:
     with profile(activities=activities) as prof:
         fn()
         torch.cuda.synchronize()
-    launches = sum(e.count for e in device_events(prof))
-    require(launches == 3, f"frontier_expand: {launches} device launches "
-            "in one call, want 3")
+    events = device_events(prof)
+    launches = sum(e.count for e in events)
+    keys = {e.key for e in events}         # not the L2 flush's fill
     with profile(activities=activities) as prof:
         for _ in range(TIMING_REPS):
             flush.zero_()
             fn()
         torch.cuda.synchronize()
-    by_kernel = {name: [e.self_device_time_total / e.count / 1e3
-                        for e in device_events(prof) if name in e.key]
-                 for name in ("frontier_degree_sums", "frontier_scan_ends",
-                              "frontier_expand_slots")}
-    require(all(len(ms) == 1 for ms in by_kernel.values()),
-            f"frontier_expand: the profiler's kernels {by_kernel}")
-    return {"expand_only_ms": by_kernel["frontier_expand_slots"][0],
+    return launches, {e.key: e.self_device_time_total / e.count / 1e3
+                      for e in device_events(prof) if e.key in keys}
+
+
+def kernel_times(by_key: dict, names, label: str) -> dict:
+    """Each of ``names``' mean ms from :func:`device_profile`'s keys (one
+    key each)."""
+    found = {n: [ms for key, ms in by_key.items() if n in key]
+             for n in names}
+    require(all(len(ms) == 1 for ms in found.values()),
+            f"{label}: the profiler's kernels {sorted(by_key)}")
+    return {n: ms[0] for n, ms in found.items()}
+
+
+def expand_profile(fn, flush) -> dict:
+    """``frontier_expand``'s device launches per call (3) and the mean
+    time of each of its kernels."""
+    launches, by_key = device_profile(fn, flush)
+    require(launches == 3, f"frontier_expand: {launches} device launches "
+            "in one call, want 3")
+    by_kernel = kernel_times(by_key, ("frontier_degree_sums",
+                                      "frontier_scan_ends",
+                                      "frontier_expand_slots"),
+                             "frontier_expand")
+    return {"expand_only_ms": by_kernel["frontier_expand_slots"],
             "device_launches_per_call": launches,
-            "device_ms_by_kernel": {k: v[0] for k, v in by_kernel.items()}}
+            "device_ms_by_kernel": by_kernel}
+
+
+SPMM_KERNELS = ("spmm_segment_rows", "spmm_segment_hub_fixup")
+
+
+def spmm_profile(calls: dict, flush) -> dict:
+    """``spmm_segment``'s device launches per call and the mean time of
+    each of its two kernels at each case of ``calls`` (each has E > H, so
+    both run)."""
+    out = {}
+    for case, fn in calls.items():
+        launches, by_key = device_profile(fn, flush)
+        require(launches == 2, f"spmm_segment ({case}): {launches} device "
+                "launches in one call, want 2")
+        out[case] = {"device_launches_per_call": launches,
+                     "device_ms_by_kernel": kernel_times(
+                         by_key, SPMM_KERNELS, f"spmm_segment ({case})")}
+    return out
 
 
 def expand_cases_on_card() -> dict:
@@ -622,14 +668,15 @@ def frontier_pull_phase(ds, frontier, visited, level, flush):
     }
 
 
-def spmm_case(x, src, dst, w, num_out: int, check: str, flush) -> dict:
+def spmm_case(x, src, dst, w, num_out: int, check: str, flush):
     """``spmm_segment`` against its plain version on the card, ``check``
     ``exact``, ``close`` (SPMM_TOL) or ``scaled`` (within 1e-5 of each
     row's sum of absolute terms, for rows of thousands of edges).  ``ms`` is
     the call the engine makes each level (the kernel on edges already in
     destination order); ``wrapper_ms`` adds the wrapper's stable sort;
     ``library_ms`` is ``torch.sparse.mm`` of the (num_out x N) CSR matrix
-    of the live edges' weights, built outside the timed region."""
+    of the live edges' weights, built outside the timed region.  Returns
+    the case's numbers and its kernel call, for :func:`spmm_profile`."""
     n, d = x.shape
     seg = spmm_ops.segments(dst, num_out)
     s_src, s_w = src[seg.order], w[seg.order]
@@ -639,6 +686,8 @@ def spmm_case(x, src, dst, w, num_out: int, check: str, flush) -> dict:
     torch.cuda.synchronize()
     label = f"spmm_segment N={n} E={src.shape[0]} D={d}"
     require(torch.equal(got, via_wrapper), f"{label}: wrapper differs")
+    require(got.shape == (num_out, d) and bool(got.isfinite().all()),
+            f"{label}: shape {tuple(got.shape)} or a non-finite value")
     if check == "exact":
         require(torch.equal(got, want), f"{label} differs from its plain "
                                         f"version")
@@ -663,10 +712,14 @@ def spmm_case(x, src, dst, w, num_out: int, check: str, flush) -> dict:
     nbytes = (num_out + 1) * 4 + e * 4 + n_live * 4 + rows * d * 4 \
         + num_out * d * 4
     ops = 2.0 * n_live * d
+
+    def call():
+        return spmm_ops.spmm_segment_sorted(x, s_src, seg.seg, s_w,
+                                            seg.offsets)
+
     return {
         "max_abs_err": max_abs_err(got, want),
-        "ms": time_ms(lambda: spmm_ops.spmm_segment_sorted(
-            x, s_src, seg.seg, s_w, seg.offsets), flush),
+        "ms": time_ms(call, flush),
         "wrapper_ms": time_ms(lambda: spmm_ops.spmm_segment(
             x, src, dst, w, num_out), flush),
         "plain_ms": time_ms(lambda: spmm_segment_ref(x, src, dst, w,
@@ -681,7 +734,7 @@ def spmm_case(x, src, dst, w, num_out: int, check: str, flush) -> dict:
                                      + e * 12, ops),
         "shape": f"N={n} E={e} D={d} live={n_live} rows={rows} "
                  f"out={num_out}",
-    }
+    }, call
 
 
 def spmm_main_input(r, cols: dict, num_vertices: int):
@@ -713,32 +766,77 @@ def spmm_random_input(seed: int, num_vertices: int, num_edges: int, d: int):
             torch.from_numpy(dst).to(DEVICE), torch.from_numpy(w).to(DEVICE))
 
 
+def spmm_tile_cases_on_card() -> dict:
+    """Each shared tile case (``spmm_tile_case``) at D = 1, 4, 17 and 128
+    on the card: rows of at most S edges equal to the plain version run on
+    the CPU, every row within 1e-5 of its sum of absolute terms, two calls
+    bit-equal.  Returns each case's E, hubs and largest error per D."""
+    from repro_torch.kernels.spmm_segment.ref import (SPMM_CASES,
+                                                      spmm_tile_case)
+    from repro_torch.kernels.spmm_segment.spmm_segment import (SHORT_ROW,
+                                                               tile_plan)
+    cases = {}
+    for case in SPMM_CASES:
+        for d in (1, 4, 17, 128):
+            x, src, dst, w, n_out = spmm_tile_case(case, d)
+            x, src, dst, w = (torch.from_numpy(a) for a in (x, src, dst, w))
+            want = spmm_segment_ref(x, src, dst, w, n_out)
+            scale = spmm_segment_ref(x.abs(), src, dst, w.abs(), n_out)
+            deg = spmm_ops.segments(dst, n_out).offsets.diff()
+            args = [t.to(DEVICE) for t in (x, src, dst, w)]
+            got = spmm_ops.spmm_segment(*args, n_out)
+            again = spmm_ops.spmm_segment(*args, n_out)
+            torch.cuda.synchronize()
+            label = f"spmm_segment tile case {case} D={d}"
+            require(torch.equal(got.view(torch.int32),
+                                again.view(torch.int32)),
+                    f"{label}: two calls differ")
+            got = got.cpu()
+            short = deg <= SHORT_ROW
+            require(got.shape == want.shape
+                    and torch.equal(got[short], want[short]),
+                    f"{label}: a short row differs from the CPU run")
+            require(bool(((got - want).abs() <= 1e-5 * scale + 1e-5).all()),
+                    f"{label}: beyond 1e-5 of the rows' absolute sums")
+            hub = tile_plan(src.shape[0], d).hub_edges
+            cases.setdefault(case, {})[d] = {
+                "E": src.shape[0], "hubs": int((deg > hub).sum()),
+                "max_abs_err": max_abs_err(got, want)}
+    return cases
+
+
 def spmm_segment_phase(r, cols: dict, num_vertices: int, flush):
+    """Cases (a)-(e) against the plain version (the kernel line's entry is
+    (a)); returns the entry, the cases and the kernel calls at (a) and
+    (d), for :func:`spmm_profile`."""
     x, src, dst, w, level = spmm_main_input(r, cols, num_vertices)
-    frm = torch.from_numpy(cols["from"])
-    x_random = torch.from_numpy(np.random.default_rng(4).standard_normal(
-        (num_vertices, 1), dtype=np.float32))
-    main = spmm_case(x.to(DEVICE), src.to(DEVICE), dst.to(DEVICE),
-                     w.to(DEVICE), num_vertices, "exact", flush)
+    frm = torch.from_numpy(cols["from"]).to(DEVICE)
+    to, w = dst.to(DEVICE), w.to(DEVICE)
+    main, main_call = spmm_case(x.to(DEVICE), src.to(DEVICE), to, w,
+                                num_vertices, "exact", flush)
     main["shape"] += f" level={level}"
-    cases = {
-        "a": main,
-        "b": spmm_case(*spmm_random_input(2, 1 << 20, 1 << 22, 1), 1 << 20,
-                       "close", flush),
-        "c": spmm_case(*spmm_random_input(3, 1 << 16, 1 << 18, 128),
-                       1 << 16, "close", flush),
-        # the inbound view: every edge live, grouped by its `from` vertex
-        "d": spmm_case(x_random.to(DEVICE), dst.to(DEVICE),
-                       frm.to(DEVICE), w.to(DEVICE), num_vertices, "scaled",
-                       flush),
-    }
+    cases, calls = {"a": main}, {"a": main_call}
+    cases["b"], _ = spmm_case(*spmm_random_input(2, 1 << 20, 1 << 22, 1),
+                              1 << 20, "close", flush)
+    cases["c"], _ = spmm_case(*spmm_random_input(3, 1 << 16, 1 << 18, 128),
+                              1 << 16, "close", flush)
+    # the inbound view: every edge live, grouped by its `from` vertex
+    # (vertex 0 owns 83,619 edges), at D = 1 and at GraphSAGE-Reddit's
+    # d_hidden = 128 (src/repro/configs/graphsage_reddit.py)
+    for case, seed, d in (("d", 4, 1), ("e", 5, 128)):
+        xs = torch.from_numpy(np.random.default_rng(seed).standard_normal(
+            (num_vertices, d), dtype=np.float32)).to(DEVICE)
+        cases[case], calls[case] = spmm_case(xs, to, frm, w, num_vertices,
+                                             "scaled", flush)
+        del xs
+    del calls["e"]
     entry = {
         "name": "spmm_segment", "route": "cuda",
         "source": "src/repro_torch/csrc/spmm_segment.cu",
         "replaces": "src/repro/kernels/spmm_segment/spmm_segment.py:43",
         **main,
     }
-    return entry, cases
+    return entry, cases, calls
 
 
 def value_oracle(levels: list, cols: dict, num_vertices: int
@@ -1142,9 +1240,11 @@ def main() -> None:
     print(f"frontier_pull input: {fp['shape']}")
     bitmap_sum0 = expected_weighted[weighted_requests.index(
         Request("bitmap", "outbound", 0, "aggregate_sum"))]
-    sp, sp_cases = spmm_segment_phase(bitmap_sum0, cols, SPEC.num_vertices,
-                                      flush)
+    sp, sp_cases, sp_calls = spmm_segment_phase(bitmap_sum0, cols,
+                                                SPEC.num_vertices, flush)
     print("spmm_segment cases: " + json.dumps(sp_cases))
+    print("spmm_segment tile cases: "
+          + json.dumps(spmm_tile_cases_on_card()))
     bulk = recsys_requests[P99_REQUESTS]
     bulk_pos = recsys.featurize(DEEPFM, bulk.dense.to(DEVICE),
                                 bulk.sparse.to(DEVICE), offsets)
@@ -1285,6 +1385,8 @@ def main() -> None:
         print("profile: " + json.dumps(profile_call(str(req), fn, ms)))
 
     fe.update(expand_profile(fe_call, flush))
+    sp["profile"] = spmm_profile(sp_calls, flush)
+    print("spmm_segment profile: " + json.dumps(sp["profile"]))
     print(f"script: {time.perf_counter() - t_start:.3f} s from the build "
           f"on (host clock)")
     print(json.dumps({"kernels": list(kernels.values())}))

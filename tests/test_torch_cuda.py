@@ -10,9 +10,13 @@ arithmetic, so they must agree exactly.  ``spmm_segment`` sums: where a
 row has one edge it must agree exactly, elsewhere within ``rtol = 1e-5,
 atol = 1e-5`` (the plain version's ``index_add_`` adds with atomics in no
 fixed order), and for rows of thousands of edges within 1e-5 of the
-row's sum of absolute terms.  ``embedding_bag`` sums a bag in its sorted
-order and the plain version's ``index_add_`` with atomics: they agree
-within 1e-5 of each bag's sum of absolute terms.  DeepFM on the card
+row's sum of absolute terms.  On the shared tile cases a row of at most
+32 edges equals the plain version run on the CPU (the same order of
+adds), a longer row, summed by many threads in a fixed tree, is within
+1e-5 of its sum of absolute terms, and two calls give the same bits.
+``embedding_bag`` sums a bag in its sorted order and the plain version's
+``index_add_`` with atomics: they agree within 1e-5 of each bag's sum of
+absolute terms.  DeepFM on the card
 equals the CPU run in its positions and within ``rtol = atol = 2e-5`` in
 its logits (sums over fields and the MLP's dot products run in another
 order; TF32 off).  A weighted ``run_query`` on the card equals the CPU run in
@@ -44,7 +48,9 @@ from repro_torch.kernels.late_gather import ops as lg_ops
 from repro_torch.kernels.late_gather.ref import (late_gather_columns_ref,
                                                  late_gather_ref)
 from repro_torch.kernels.spmm_segment import ops as spmm_ops
-from repro_torch.kernels.spmm_segment.ref import spmm_segment_ref
+from repro_torch.kernels.spmm_segment.ref import (SPMM_CASES, spmm_tile_case,
+                                                  spmm_segment_ref)
+from repro_torch.kernels.spmm_segment.spmm_segment import SHORT_ROW
 from repro_torch.models import recsys
 
 
@@ -360,6 +366,27 @@ def test_spmm_segment_kernel_matches_plain(cuda, case, d):
         assert bool(((got - want).abs() <= 1e-5 * scale + 1e-5).all())
     else:
         torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("d", [1, 4, 17, 128])
+@pytest.mark.parametrize("case", SPMM_CASES)
+def test_spmm_segment_tile_cases_on_card(cuda, case, d):
+    x, src, dst, w, n_out = spmm_tile_case(case, d)
+    x, src, dst, w = (torch.from_numpy(a) for a in (x, src, dst, w))
+    want = spmm_segment_ref(x, src, dst, w, n_out)
+    scale = spmm_segment_ref(x.abs(), src, dst, w.abs(), n_out)
+    short = spmm_ops.segments(dst, n_out).offsets.diff() <= SHORT_ROW
+    args = [t.to(cuda) for t in (x, src, dst, w)]
+    before = spmm_ops.LAUNCHES
+    got = spmm_ops.spmm_segment(*args, n_out)
+    again = spmm_ops.spmm_segment(*args, n_out)
+    torch.cuda.synchronize()
+    assert spmm_ops.LAUNCHES == before + (2 if n_out * d else 0)
+    assert got.shape == (n_out, d) and got.dtype == torch.float32
+    assert torch.equal(got.view(torch.int32), again.view(torch.int32))
+    got = got.cpu()
+    assert torch.equal(got[short], want[short])
+    assert bool(((got - want).abs() <= 1e-5 * scale + 1e-5).all())
 
 
 WEIGHTED = ([("precursive", d) for d in ("outbound", "inbound", "both")]

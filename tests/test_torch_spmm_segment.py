@@ -5,9 +5,16 @@ tests/test_kernels.py, with ``src == N`` padding and empty segments.
 Every ``dst`` stays in range: there the Pallas kernel clamps where its
 plain version drops (a reference caveat).
 
+The shared tile cases (``spmm_tile_case``: hubs beside the card
+kernel's tile starts and hub threshold, medium rows, dropped edges, empty
+inputs) go through the port's plain version, its wrapper and
+``spmm_segment_sorted`` against the JAX ``spmm_segment_ref`` at D = 1, 17
+and 128, one small hub against the Pallas kernel too; the launcher's
+host-side tile plan is checked without a card.
+
 Tolerance ``rtol = 1e-5, atol = 1e-5`` (tests/test_semiring.py's for the
-kernel against its plain version): the kernel sums a row in sorted edge
-order from its first term, the plain versions add into zeros.
+kernel against its plain version): the Pallas kernel sums a row in sorted
+edge order from its first term, the plain versions add into zeros.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -20,6 +27,10 @@ from repro.kernels.spmm_segment import (gcn_norm_spmm, spmm_segment,
 from repro_torch.kernels.spmm_segment import ops as spmm_ops
 from repro_torch.kernels.spmm_segment import \
     spmm_segment_ref as port_spmm_segment_ref
+from repro_torch.kernels.spmm_segment.ref import SPMM_CASES, spmm_tile_case
+from repro_torch.kernels.spmm_segment.spmm_segment import (SHORT_ROW,
+                                                           tile_plan,
+                                                           tile_scratch)
 
 SHAPES = [(10, 30, 4), (50, 200, 17), (30, 100, 128)]
 TOL = dict(rtol=1e-5, atol=1e-5)
@@ -116,3 +127,64 @@ def test_spmm_segment_cuda_launcher_rejects_cpu_tensors():
     idx = torch.zeros((3,), dtype=torch.int32)
     with pytest.raises(ValueError, match="CUDA"):
         spmm_segment_cuda(x, idx, torch.zeros(3), idx)
+
+
+@pytest.mark.parametrize("d", [1, 17, 128])
+@pytest.mark.parametrize("case", SPMM_CASES)
+def test_spmm_tile_cases_match_reference(case, d):
+    """Every shared tile case, hubs and dropped edges included: the port's
+    plain version, its CPU wrapper and the sorted half equal the JAX
+    plain version within TOL, and rows with no live edge are 0."""
+    x, src, dst, w, n_out = spmm_tile_case(case, d)
+    want = np.asarray(spmm_segment_ref(
+        *[jnp.asarray(a) for a in (x, src, dst, w)], n_out))
+    live = (dst >= 0) & (dst < n_out) & (src < x.shape[0])
+    empty = np.bincount(dst[live], minlength=n_out) == 0
+    for got in port_results(x, src, dst, w, n_out):
+        assert got.shape == (n_out, d) and got.dtype == np.float32
+        np.testing.assert_allclose(got, want, **TOL)
+        assert not got[empty].any()
+
+
+def test_spmm_small_hub_matches_pallas_kernel():
+    """A hub of 520 edges (above H = 512 at D = 16) among 40 short rows:
+    the port's versions against the interpret-mode Pallas kernel."""
+    rng = np.random.default_rng(19)
+    n, d, n_out = 50, 16, 40
+    assert 520 > tile_plan(600, d).hub_edges
+    dst = np.concatenate([np.repeat(np.arange(n_out),
+                                    rng.integers(0, 4, n_out)),
+                          np.full(520, 7)]).astype(np.int32)
+    src = rng.integers(0, n + 1, dst.shape[0]).astype(np.int32)
+    x = rng.standard_normal((n, d)).astype(np.float32)
+    w = rng.standard_normal(dst.shape[0]).astype(np.float32)
+    kernel = np.asarray(spmm_segment(
+        *[jnp.asarray(a) for a in (x, src, dst, w)], n_out, use_pallas=True,
+        interpret=True))
+    for got in port_results(x, src, dst, w, n_out):
+        np.testing.assert_allclose(got, kernel, **TOL)
+
+
+@pytest.mark.parametrize("d", [1, 2, 3, 4, 8, 16, 17, 32, 64, 128, 1000])
+def test_tile_plan_covers_every_edge(d):
+    """The launcher's plan at every width: P a power of two above the
+    short-row length, H = 2P (every hub holds two tile starts), tile
+    starts k * P for k < T covering [0, E) exactly when E > H and none
+    otherwise, scratch of T * (D + 1) words ((T, D) partials and (T,) tile
+    rows), and no thread walking more than 64 edges of a tile with its
+    prefix (< 2P) or of a medium row (<= H)."""
+    slots = 256 // min(32, 1 << (d - 1).bit_length())
+    for e in (0, 1, 255, 256, 511, 512, 513, 2047, 2048, 4096, 4097,
+              8192, 8193, 10 ** 6, 2 ** 31 - 1):
+        p, h, t = tile_plan(e, d)
+        assert p > SHORT_ROW and p & (p - 1) == 0 and h == 2 * p
+        assert -(-h // slots) <= 64
+        if e > h:
+            assert (t - 1) * p < e <= t * p
+        else:
+            assert t == 0
+        if e <= 10 ** 6:
+            plan, scratch = tile_scratch(e, d, "cpu")
+            assert plan == (p, h, t)
+            assert scratch.shape == (t * (d + 1),)      # partials, tile_row
+            assert scratch.dtype == torch.float32
