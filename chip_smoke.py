@@ -31,9 +31,16 @@ Phases (any failure raises and the script exits non-zero):
    call and its kernels' times at (a) and (d) read from
    ``torch.profiler`` after phase 3's profile lines;
    ``embedding_bag`` at four shapes, the first the full DeepFM table with
-   the serve_bulk batch's 39 positions per sample as bags, within 1e-5 of
-   each bag's sum of absolute terms), and time the kernel, the plain
-   version and, where one exists, a single PyTorch library call;
+   the serve_bulk batch's 39 positions per sample as bags (within 1e-5 of
+   each bag's sum of absolute terms, and bit-equal to the plain version
+   run on the CPU), with the layout ``bag_layout`` chose, and on the
+   shared layout cases (``bag_layout_case``: every layout, bags of 0, 1,
+   K - 1, K, K + 1, 39 and 3,000 entries, a table at a storage offset),
+   weighted and not, under sum and mean (bit-equal to the CPU run, two
+   calls bit-equal), with its device launches per call and its kernel's
+   own time at the four shapes read from ``torch.profiler`` after phase
+   3's profile lines; and time the kernel, the plain version and, where
+   one exists, a single PyTorch library call;
 3. drive three paths at full size on the repo's own deployment
    (``src/repro/configs/posdb_bfs.py``: 2^20-vertex tree of height 16,
    8 payload columns, depth 16, result cap 2^20, plus a float32 edge
@@ -56,7 +63,8 @@ Phases (any failure raises and the script exits non-zero):
    the port's CPU run (positions equal except bucket flips at a bucket
    boundary, which are counted; scores within rtol = atol = 2e-5, TF32
    off), and one ``embedding_bag`` call at the serve_bulk bags as its
-   users call it; warm latencies and ``torch.profiler`` lines follow;
+   users call it; warm latencies and ``torch.profiler`` lines follow (the
+   ``bags`` call's among them);
 4. print one ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}``
    line last.
 
@@ -94,8 +102,11 @@ from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.embedding_bag import ops as eb_ops  # noqa: E402
 from repro_torch.kernels.embedding_bag.ops import \
     fixed_hot_lookup  # noqa: E402
-from repro_torch.kernels.embedding_bag.ref import (bag_cases,  # noqa: E402
-                                                    embedding_bag_ref)
+from repro_torch.kernels.embedding_bag.embedding_bag import \
+    bag_layout  # noqa: E402
+from repro_torch.kernels.embedding_bag.ref import (  # noqa: E402
+    BAG_LAYOUT_CASES, bag_cases, bag_layout_case, embedding_bag_ref,
+    layout_table)
 from repro_torch.kernels.frontier_expand import ops as fe_ops  # noqa: E402
 from repro_torch.kernels.frontier_expand.ref import (  # noqa: E402
     EXPAND_CASES, expand_case)
@@ -870,9 +881,11 @@ def embedding_bag_case(table, idx, seg, w, num_bags: int, combiner: str,
     entries already in bag order; ``wrapper_ms`` adds the wrapper's stable
     sort; ``library_ms`` is ``torch.nn.functional.embedding_bag`` over the
     live entries (in-range segment, index wrapped into [0, R)) in bag
-    order, built outside the timed region.  ``cpu_exact`` says whether the
-    kernel also equals the plain version run on the CPU bit for bit (its
-    ``index_add_`` adds in the entries' order there)."""
+    order, built outside the timed region.  ``cpu_exact``: the kernel
+    equals the plain version run on the CPU bit for bit (its
+    ``index_add_`` adds in the entries' order there, as the kernel does);
+    required.  ``layout`` is the kernel's, from ``bag_layout``.  Returns
+    the case and the kernel's call on the sorted entries."""
     r, d = table.shape
     n = idx.shape[0]
     s = spmm_ops.segments(seg, num_bags)
@@ -895,6 +908,9 @@ def embedding_bag_case(table, idx, seg, w, num_bags: int, combiner: str,
     want_cpu = embedding_bag_ref(table.cpu(), idx.cpu(), seg.cpu(), num_bags,
                                  None if w is None else w.cpu(),
                                  combiner=combiner)
+    require(torch.equal(got.cpu().view(torch.int32),
+                        want_cpu.view(torch.int32)),
+            f"{label} differs from its plain version run on the CPU")
     # the library call's inputs: live entries in bag order, bag offsets
     wrapped = torch.where(s_idx < 0, s_idx + r, s_idx).long()
     in_bag = (s.seg >= 0) & (s.seg < num_bags)
@@ -920,12 +936,17 @@ def embedding_bag_case(table, idx, seg, w, num_bags: int, combiner: str,
     nbytes = (num_bags + 1) * 4 + entries * (8 if weighted else 4) \
         + rows * d * 4 + num_bags * d * 4
     ops = (2.0 if weighted else 1.0) * n_live * d
+
+    def kernel():
+        return eb_ops.embedding_bag_sorted(table, s_idx, s.seg, s_w,
+                                           s.offsets, combiner=combiner)
+
     return {
         "max_abs_err": max_abs_err(got, want),
-        "cpu_exact": bool(torch.equal(got.cpu(), want_cpu)),
+        "cpu_exact": True,
+        "layout": bag_layout(d, table.data_ptr())._asdict(),
         "library_max_abs_err": max_abs_err(got, library()),
-        "ms": time_ms(lambda: eb_ops.embedding_bag_sorted(
-            table, s_idx, s.seg, s_w, s.offsets, combiner=combiner), flush),
+        "ms": time_ms(kernel, flush),
         "wrapper_ms": time_ms(lambda: eb_ops.embedding_bag(
             table, idx, seg, num_bags, w, combiner=combiner), flush),
         "plain_ms": time_ms(lambda: embedding_bag_ref(
@@ -940,7 +961,9 @@ def embedding_bag_case(table, idx, seg, w, num_bags: int, combiner: str,
                                      + n * (8 if weighted else 4), ops),
         "shape": f"R={r} D={d} I={n} bags={num_bags} live={n_live} "
                  f"rows={rows} {combiner}{' weighted' if weighted else ''}",
-    }
+        # one lane group walks a bag in series: the longest sets the tail
+        "largest_bag": int(s.offsets.diff().max()) if num_bags else 0,
+    }, kernel
 
 
 def bag_inputs(case: str):
@@ -953,12 +976,15 @@ def embedding_bag_phase(table, pos, flush):
     """(a) the full DeepFM table, one bag per serve_bulk sample over its 39
     positions (unweighted sum), whose sums must also equal the forward
     pass's ``emb.sum(1)``; (b) and (c) weighted with out-of-range entries
-    (:func:`bag_inputs`); (d) (b)'s entries unweighted under ``mean``."""
+    (:func:`bag_inputs`); (d) (b)'s entries unweighted under ``mean``.
+    Returns the kernel line's entry (a), the cases, (a)'s bags and each
+    case's kernel call on sorted entries."""
     b, k = pos.shape
     idx = pos.reshape(-1).contiguous()
     seg = torch.arange(b, dtype=torch.int32, device=DEVICE) \
         .repeat_interleave(k)
-    main = embedding_bag_case(table, idx, seg, None, b, "sum", flush)
+    main, main_call = embedding_bag_case(table, idx, seg, None, b, "sum",
+                                         flush)
     bags = eb_ops.embedding_bag(table, idx, seg, b)
     emb = fixed_hot_lookup(table, pos)
     torch.cuda.synchronize()
@@ -966,20 +992,79 @@ def embedding_bag_phase(table, pos, flush):
                   <= BAG_TOL * emb.abs().sum(1)).all()),
             "embedding_bag (a) differs from the forward pass's emb.sum(1)")
     tab_b, idx_b, seg_b, w_b, nb = bag_inputs("b")
-    cases = {
-        "a": main,
-        "b": embedding_bag_case(tab_b, idx_b, seg_b, w_b, nb, "sum", flush),
-        "c": embedding_bag_case(*bag_inputs("c")[:4], 8192, "sum", flush),
-        "d": embedding_bag_case(tab_b, idx_b, seg_b, None, nb, "mean",
-                                flush),
-    }
+    cases, calls = {"a": main}, {"a": main_call}
+    for case, args in (("b", (tab_b, idx_b, seg_b, w_b, nb, "sum")),
+                       ("c", (*bag_inputs("c")[:4], 8192, "sum")),
+                       ("d", (tab_b, idx_b, seg_b, None, nb, "mean"))):
+        cases[case], calls[case] = embedding_bag_case(*args, flush)
     entry = {
         "name": "embedding_bag", "route": "cuda",
         "source": "src/repro_torch/csrc/embedding_bag.cu",
         "replaces": "src/repro/kernels/embedding_bag/embedding_bag.py:47",
         **main,
     }
-    return entry, cases, (idx, seg, bags)
+    return entry, cases, (idx, seg, bags), calls
+
+
+def embedding_bag_layout_cases_on_card() -> dict:
+    """Each shared layout case (``bag_layout_case``: every layout of
+    ``bag_layout``, bags of 0, 1, K - 1, K, K + 1, 39 and 3,000 entries, a
+    table at a storage offset) on the card, weighted and not, under sum
+    and mean: bit-equal to the plain version run on the CPU, two calls
+    bit-equal, empty bags zero.  Returns each case's layout and largest
+    error against the card's plain version."""
+    cases = {}
+    for case in BAG_LAYOUT_CASES:
+        tab, idx, seg, w, b, offset = bag_layout_case(case)
+        idx, seg, w = (torch.from_numpy(a) for a in (idx, seg, w))
+        t = layout_table(tab, offset, DEVICE)
+        layout = bag_layout(t.shape[1], t.data_ptr())
+        require(not offset or layout.vec == 1,
+                f"embedding_bag layout case {case}: {layout}")
+        errs = {}
+        for weighted in (False, True):
+            for combiner in ("sum", "mean"):
+                ww = w if weighted else None
+                want = embedding_bag_ref(layout_table(tab, offset), idx,
+                                         seg, b, ww, combiner=combiner)
+                args = [None if a is None else a.to(DEVICE)
+                        for a in (idx, seg, ww)]
+                got = eb_ops.embedding_bag(t, args[0], args[1], b, args[2],
+                                           combiner=combiner)
+                again = eb_ops.embedding_bag(t, args[0], args[1], b,
+                                             args[2], combiner=combiner)
+                torch.cuda.synchronize()
+                label = (f"embedding_bag layout case {case} {combiner}"
+                         f"{' weighted' if weighted else ''}")
+                bits = got.view(torch.int32)
+                require(torch.equal(bits, again.view(torch.int32)),
+                        f"{label}: two calls differ")
+                require(torch.equal(bits.cpu(), want.view(torch.int32)),
+                        f"{label}: differs from the CPU run")
+                require(not got[[0, b - 1]].any(),
+                        f"{label}: an empty bag is not zero")
+                errs[f"{combiner}{' weighted' if weighted else ''}"] = \
+                    max_abs_err(got, embedding_bag_ref(
+                        t, *args[:2], b, args[2], combiner=combiner))
+        cases[case] = {"D": tab.shape[1], "I": int(idx.shape[0]),
+                       "layout": layout._asdict(),
+                       "max_abs_err_vs_card_plain": errs}
+    return cases
+
+
+def bag_profile(calls: dict, flush) -> dict:
+    """``embedding_bag``'s device launches per call (1) and its kernel's
+    own mean device time at each case of ``calls``."""
+    out = {}
+    for case, fn in calls.items():
+        launches, by_key = device_profile(fn, flush)
+        require(launches == 1, f"embedding_bag ({case}): {launches} device "
+                "launches in one call, want 1")
+        out[case] = {"device_launches_per_call": launches,
+                     "kernel_device_ms": kernel_times(
+                         by_key, ("embedding_bag_kernel",),
+                         f"embedding_bag ({case})")["embedding_bag_kernel"]}
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1248,9 +1333,11 @@ def main() -> None:
     bulk = recsys_requests[P99_REQUESTS]
     bulk_pos = recsys.featurize(DEEPFM, bulk.dense.to(DEVICE),
                                 bulk.sparse.to(DEVICE), offsets)
-    eb, eb_cases, (bag_idx, bag_seg, bag_sums) = embedding_bag_phase(
-        params["table"], bulk_pos, flush)
+    eb, eb_cases, (bag_idx, bag_seg, bag_sums), eb_calls = \
+        embedding_bag_phase(params["table"], bulk_pos, flush)
     print("embedding_bag cases: " + json.dumps(eb_cases))
+    print("embedding_bag layout cases: "
+          + json.dumps(embedding_bag_layout_cases_on_card()))
     lg_deepfm = late_gather_case([params["table"]], bag_idx, flush)
     print("late_gather deepfm case: " + json.dumps(lg_deepfm))
     kernels = {"frontier_expand": fe, "late_gather": lg,
@@ -1384,9 +1471,23 @@ def main() -> None:
               f"clock, the features' copy to the card included)")
         print("profile: " + json.dumps(profile_call(str(req), fn, ms)))
 
+    def bags_call():
+        return eb_ops.embedding_bag(params["table"], bag_idx, bag_seg,
+                                    BULK_BATCH)
+    ms = warm_latency_ms(bags_call)
+    label = f"embedding_bag bags B={BULK_BATCH} I={bag_idx.shape[0]}"
+    print(f"request {label}: warm latency {ms:.3f} ms (median of 3, host "
+          f"clock, the wrapper's sort included)")
+    print("profile: " + json.dumps(profile_call(label, bags_call, ms)))
+
     fe.update(expand_profile(fe_call, flush))
     sp["profile"] = spmm_profile(sp_calls, flush)
     print("spmm_segment profile: " + json.dumps(sp["profile"]))
+    eb_profile = bag_profile(eb_calls, flush)
+    eb["kernel_device_ms"] = eb_profile["a"]["kernel_device_ms"]
+    print("embedding_bag profile: " + json.dumps(
+        {case: {"ms": eb_cases[case]["ms"], **p}
+         for case, p in eb_profile.items()}))
     print(f"script: {time.perf_counter() - t_start:.3f} s from the build "
           f"on (host clock)")
     print(json.dumps({"kernels": list(kernels.values())}))

@@ -16,7 +16,9 @@ adds), a longer row, summed by many threads in a fixed tree, is within
 1e-5 of its sum of absolute terms, and two calls give the same bits.
 ``embedding_bag`` sums a bag in its sorted order and the plain version's
 ``index_add_`` with atomics: they agree within 1e-5 of each bag's sum of
-absolute terms.  DeepFM on the card
+absolute terms.  On the shared layout cases (``bag_layout_case``) the
+kernel equals the plain version run on the CPU bit for bit (the same
+order of adds), and two calls give the same bits.  DeepFM on the card
 equals the CPU run in its positions and within ``rtol = atol = 2e-5`` in
 its logits (sums over fields and the MLP's dot products run in another
 order; TF32 off).  A weighted ``run_query`` on the card equals the CPU run in
@@ -36,7 +38,12 @@ from repro_torch.data.treegen import TreeSpec, make_edge_table
 from repro_torch.configs.deepfm import SMOKE
 from repro_torch.data.recsys_stream import recsys_batch, vocab_sizes
 from repro_torch.kernels.embedding_bag import ops as eb_ops
-from repro_torch.kernels.embedding_bag.ref import bag_cases, embedding_bag_ref
+from repro_torch.kernels.embedding_bag import bag_layout
+from repro_torch.kernels.embedding_bag.ref import (BAG_LAYOUT_CASES,
+                                                   bag_cases,
+                                                   bag_layout_case,
+                                                   embedding_bag_ref,
+                                                   layout_table)
 from repro_torch.kernels.frontier_expand import (EXPAND_CASES, expand_case,
                                                  frontier_expand_cuda)
 from repro_torch.kernels.frontier_expand import ops as fe_ops
@@ -449,6 +456,43 @@ def test_embedding_bag_kernel_matches_plain(cuda, case, weighted, combiner):
     assert bool(((got - want).abs() <= 1e-5 * scale).all())
     empty = 4 if case == "smoke" else 1000
     assert not got[empty].any()
+
+
+@pytest.mark.parametrize("combiner", ["sum", "mean"])
+@pytest.mark.parametrize("weighted", [False, True])
+@pytest.mark.parametrize("case", BAG_LAYOUT_CASES)
+def test_embedding_bag_layout_cases_on_card(cuda, case, weighted, combiner):
+    tab, idx, seg, w, b, offset = bag_layout_case(case)
+    idx, seg, w = (torch.from_numpy(a) for a in (idx, seg, w))
+    w = w if weighted else None
+    want_cpu = embedding_bag_ref(layout_table(tab, offset), idx, seg, b, w,
+                                 combiner=combiner)
+    t = layout_table(tab, offset, cuda)
+    assert t.storage_offset() == int(offset)
+    if offset:
+        assert bag_layout(t.shape[1], t.data_ptr()).vec == 1
+    i, s, ww = (None if a is None else a.to(cuda) for a in (idx, seg, w))
+    want = embedding_bag_ref(t, i, s, b, ww, combiner=combiner)
+    scale = embedding_bag_ref(t.abs(), i, s, b,
+                              None if ww is None else ww.abs(),
+                              combiner=combiner)
+    sg = spmm_ops.segments(s, b)
+    si, sw = i[sg.order], None if ww is None else ww[sg.order]
+    before = eb_ops.LAUNCHES
+    got = eb_ops.embedding_bag(t, i, s, b, ww, combiner=combiner)
+    again = eb_ops.embedding_bag(t, i, s, b, ww, combiner=combiner)
+    assert eb_ops.LAUNCHES == before + 2
+    via_sorted = eb_ops.embedding_bag_sorted(t, si, sg.seg, sw, sg.offsets,
+                                             combiner=combiner)
+    assert eb_ops.LAUNCHES == before + 3
+    torch.cuda.synchronize()
+    assert got.shape == (b, tab.shape[1]) and got.dtype == torch.float32
+    bits = got.view(torch.int32)
+    assert torch.equal(bits, again.view(torch.int32))
+    assert torch.equal(bits, via_sorted.view(torch.int32))
+    assert torch.equal(bits.cpu(), want_cpu.view(torch.int32))
+    assert bool(((got - want).abs() <= 1e-5 * scale).all())
+    assert not got[[0, b - 1]].any()
 
 
 def test_embedding_bag_kernel_refuses_other_dtypes(cuda):

@@ -10,6 +10,15 @@ Negative indices and segment ids outside [0, num_bags) are compared with
 into the last bag and overwrites it, where its plain version drops it (a
 reference caveat the port does not copy).
 
+The shared layout cases (``bag_layout_case``: every layout of the card
+kernel, bags of 0, 1, K - 1, K, K + 1, 39 and 3,000 entries, a table at a
+storage offset) go through the port's three CPU routes against the JAX
+``embedding_bag_ref``; an index below -R contributes zero in the port,
+where ``jnp.take`` fills NaN, so the JAX side gets such an entry as index
+0 with weight 0 (the same zero term, counted by ``mean`` as both count
+it).  Their clean variants (no negative index, no dropped entry) also go
+through the interpret-mode Pallas kernel.
+
 Tolerance ``rtol = 1e-5, atol = 1e-5``: the Pallas kernel sums a bag in
 sorted order from a sentinel row, the plain versions add into zeros in
 their own order.  A gather does no arithmetic, so ``fixed_hot_lookup`` is
@@ -26,6 +35,10 @@ from repro.kernels.embedding_bag import (embedding_bag, embedding_bag_ref,
 from repro_torch.kernels.embedding_bag import ops as eb_ops
 from repro_torch.kernels.embedding_bag import \
     embedding_bag_ref as port_embedding_bag_ref
+from repro_torch.kernels.embedding_bag import bag_layout
+from repro_torch.kernels.embedding_bag.ref import (BAG_LAYOUT_CASES,
+                                                   bag_layout_case,
+                                                   layout_table)
 from repro_torch.kernels.spmm_segment.ops import segments
 
 TOL = dict(rtol=1e-5, atol=1e-5)
@@ -53,10 +66,12 @@ def torch_args(*arrays):
     return [None if a is None else torch.from_numpy(a) for a in arrays]
 
 
-def port_results(tab, idx, seg, w, num_bags=B, combiner="sum"):
+def port_results(tab, idx, seg, w, num_bags=B, combiner="sum", t=None):
     """The port's plain version, its wrapper and the wrapper's sorted half,
-    on CPU tensors: no kernel launches."""
-    t, i, s, ww = torch_args(tab, idx, seg, w)
+    on CPU tensors (the table ``t`` where given, else ``tab``): no kernel
+    launches."""
+    tt, i, s, ww = torch_args(tab, idx, seg, w)
+    t = tt if t is None else t
     before = eb_ops.LAUNCHES
     sg = segments(s, num_bags)
     out = [port_embedding_bag_ref(t, i, s, num_bags, ww, combiner=combiner),
@@ -188,3 +203,92 @@ def test_embedding_bag_cuda_launcher_rejects_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         embedding_bag_cuda(tab, idx, None, torch.zeros((2,),
                                                        dtype=torch.int32))
+
+
+def jax_layout_args(tab, idx, seg, w):
+    """The JAX reference's arguments for a layout case: an index below -R
+    becomes index 0 with weight 0 (the port's zero term)."""
+    below = idx < -tab.shape[0]
+    ones = np.ones(idx.shape, np.float32) if w is None else w
+    return jax_args(tab, np.where(below, 0, idx).astype(np.int32), seg,
+                    np.where(below, 0, ones).astype(np.float32))
+
+
+@pytest.mark.parametrize("combiner", ["sum", "mean"])
+@pytest.mark.parametrize("weighted", [False, True])
+@pytest.mark.parametrize("case", BAG_LAYOUT_CASES)
+def test_embedding_bag_layout_cases_match_reference(case, weighted,
+                                                    combiner):
+    tab, idx, seg, w, b, offset = bag_layout_case(case)
+    w = w if weighted else None
+    t = layout_table(tab, offset)
+    assert t.is_contiguous() and t.storage_offset() == int(offset)
+    want = np.asarray(embedding_bag(*jax_layout_args(tab, idx, seg, w)[:3],
+                                    b, jax_layout_args(tab, idx, seg, w)[3],
+                                    combiner=combiner))
+    assert np.isfinite(want).all()
+    for got in port_results(tab, idx, seg, w, b, combiner, t):
+        assert got.shape == (b, tab.shape[1]) and got.dtype == np.float32
+        np.testing.assert_allclose(got, want, **TOL)
+        assert not got[[0, b - 1]].any()               # empty bags are 0
+
+
+@pytest.mark.parametrize("weighted", [False, True])
+@pytest.mark.parametrize("case", BAG_LAYOUT_CASES)
+def test_embedding_bag_clean_layout_cases_match_pallas(case, weighted):
+    tab, idx, seg, w, b, offset = bag_layout_case(case, clean=True)
+    w = w if weighted else None
+    args = jax_args(tab, idx, seg, w)
+    want = np.asarray(embedding_bag_ref(*args[:3], b, args[3]))
+    kernel = np.asarray(embedding_bag(*args[:3], b, args[3],
+                                      use_pallas=True))
+    np.testing.assert_allclose(kernel, want, **TOL)
+    for got in port_results(tab, idx, seg, w, b,
+                            t=layout_table(tab, offset)):
+        np.testing.assert_allclose(got, kernel, **TOL)
+
+
+def test_bag_layout_cases_cover_the_kernel_layouts():
+    """The cases reach every vector width, 1-4 accumulators a lane, one
+    and several bags a warp, the column split, and batch sizes K = 8 and
+    4; the offset view of an aligned base takes the scalar path."""
+    seen = set()
+    for case in BAG_LAYOUT_CASES:
+        tab, _, seg, _, b, offset = bag_layout_case(case)
+        t = layout_table(tab, offset)
+        layout = bag_layout(tab.shape[1], t.data_ptr())
+        assert layout == bag_layout(tab.shape[1], 4 if offset else 0)
+        if offset:
+            assert layout.vec == 1
+        sizes = np.bincount(seg[(seg >= 0) & (seg < b)], minlength=b)
+        k = layout.batch
+        assert sizes[:7].tolist() == [0, 1, k - 1, k, k + 1, 39, 3000]
+        seen.add(layout[:2] + layout[3:])
+    assert {v for v, *_ in seen} == {1, 2, 4}
+    assert {c for _, _, c, _, _ in seen} == {1, 2, 3, 4}
+    assert any(s > 1 for *_, s, _ in seen)
+    assert {k for *_, k in seen} == {4, 8}
+
+
+@pytest.mark.parametrize("dim,ptr,want", [
+    (1, 0, (1, 1, 32, 1, 1, 8)),
+    (2, 8, (2, 1, 32, 1, 1, 8)),
+    (2, 4, (1, 2, 16, 1, 1, 8)),
+    (10, 0, (2, 5, 6, 1, 1, 8)),
+    (10, 4, (1, 10, 3, 1, 1, 8)),
+    (16, 16, (4, 4, 8, 1, 1, 8)),
+    (16, 8, (2, 8, 4, 1, 1, 8)),
+    (17, 0, (1, 17, 1, 1, 1, 8)),
+    (128, 0, (4, 32, 1, 1, 1, 8)),
+    (128, 4, (1, 32, 1, 4, 1, 4)),
+    (200, 0, (4, 32, 1, 2, 1, 4)),
+    (512, 0, (4, 32, 1, 4, 1, 4)),
+    (516, 0, (4, 32, 1, 4, 2, 4)),
+    (129, 0, (1, 32, 1, 4, 2, 4)),
+])
+def test_bag_layout_choice(dim, ptr, want):
+    """float4 needs D % 4 == 0 and a 16-byte aligned table, float2 D % 2
+    == 0 and 8 bytes; U <= 32 units take U lanes and floor(32 / U) bags a
+    warp; up to 128 units 32 lanes with ceil(U / 32) accumulators; wider
+    rows are cut into slices of 128 units."""
+    assert tuple(bag_layout(dim, ptr)) == want
