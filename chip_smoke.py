@@ -18,7 +18,14 @@ Phases (any failure raises and the script exits non-zero):
    from ``torch.profiler`` after phase 3's profile lines; ``late_gather``
    at the take of all 12 output columns at root 0's positions, at one
    column in each of float32, int32 and bfloat16 and at DeepFM's lookup,
-   each also with negative positions mixed in; ``spmm_segment`` at root
+   each also with negative positions mixed in; ``frontier_pull`` at
+   ``diropt`` root 0's first pull level over the dataset's pull layout
+   (``ms``) and building its own (``wrapper_ms``), at the inbound view's
+   hub (vertex 0 unvisited, its only frontier in-neighbor last in its
+   83,619-entry row) and at the shared ``PULL_CASES`` (``frontier_pull
+   cases:``), with its device launches per call, no memset, and its
+   kernels' times read from ``torch.profiler`` last (``frontier_pull
+   profile:``); ``spmm_segment`` at root
    0's widest ``bitmap`` aggregate_sum level (exact), on two random graphs
    with in-degree > 1 (within rtol = atol = 1e-5), on the tree's inbound
    view, whose vertex 0 owns 83,619 edges, at D = 1 (d) and at
@@ -64,7 +71,7 @@ Phases (any failure raises and the script exits non-zero):
    boundary, which are counted; scores within rtol = atol = 2e-5, TF32
    off), and one ``embedding_bag`` call at the serve_bulk bags as its
    users call it; warm latencies and ``torch.profiler`` lines follow (the
-   ``bags`` call's among them);
+   forced-pull ``diropt`` root 0's and the ``bags`` call's among them);
 4. print one ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}``
    line last.
 
@@ -111,8 +118,9 @@ from repro_torch.kernels.frontier_expand import ops as fe_ops  # noqa: E402
 from repro_torch.kernels.frontier_expand.ref import (  # noqa: E402
     EXPAND_CASES, expand_case)
 from repro_torch.kernels.frontier_pull import ops as fp_ops  # noqa: E402
-from repro_torch.kernels.frontier_pull.ref import \
-    frontier_pull_ref  # noqa: E402
+from repro_torch.kernels.frontier_pull import (  # noqa: E402
+    PULL_CASES, build_pull_layout, frontier_pull_layout_ref,
+    frontier_pull_ref, pull_case)
 from repro_torch.kernels.late_gather import ops as lg_ops  # noqa: E402
 from repro_torch.kernels.late_gather.ref import \
     late_gather_columns_ref  # noqa: E402
@@ -640,43 +648,162 @@ def pull_input(r, cols: dict, num_vertices: int):
     return vd == level, (vd >= 0) & (vd <= level), level
 
 
-def frontier_pull_phase(ds, frontier, visited, level, flush):
-    ds.ensure_reverse()
-    rcsr = ds.rcsr
-    src, dst = ds.table.column("from"), ds.table.column("to")
-    f, v = frontier.to(DEVICE), visited.to(DEVICE)
-    got = fp_ops.frontier_pull_fused(rcsr, src, dst, f, v)
+def walk_bytes(layout, f: torch.Tensor, v: torch.Tensor) -> int:
+    """The bytes the layout route can not avoid (``layout_bound_ms``):
+    ``visited`` and the output (V each), and for each unvisited vertex with
+    an in-entry its two ``ptr`` words, then one ``nbr`` word and one
+    frontier byte for each entry of its row up to its first hit (the whole
+    row when none hits; one entry at the main shape, where every vertex
+    has one in-entry)."""
+    nv, e = f.shape[0], layout.num_edges
+    ptr = layout.ptr.long()
+    deg = ptr[1:] - ptr[:-1]
+    open_rows = ~v & (deg > 0)
+    owner = torch.repeat_interleave(torch.arange(nv, device=f.device), deg)
+    rank = torch.arange(e, device=f.device) - ptr[owner]
+    first = deg.clone().scatter_reduce_(
+        0, owner, torch.where(f[layout.nbr], rank, deg[owner]), "amin")
+    read = torch.minimum(first + 1, deg)[open_rows]
+    return 2 * nv + int(open_rows.sum()) * 8 + int(read.sum()) * 5
+
+
+def frontier_pull_shape(ctx, f: torch.Tensor, v: torch.Tensor, flush):
+    """``frontier_pull`` at one shape of a direction's join view: the
+    kernel over the dataset's layout (``ms``, the per-level call) and
+    without it (``wrapper_ms``, which builds a layout in the call) held
+    bit-equal to both plain versions.  ``bound_ms`` (also printed as
+    ``layout_bound_ms``) counts what the timed call needs, from
+    :func:`walk_bytes`; ``entry_bound_ms`` keeps the per-entry kernel's
+    count (perm and join_dst in full, visited, join_src and the frontier
+    bytes that the open entries need, the output), which the layout call
+    does not read.  Returns the numbers and the per-level call."""
+    rcsr, src, dst, layout = ctx.rcsr, ctx.join_src, ctx.join_dst, \
+        ctx.pull_layout
+    require(layout is not None, "the dataset built no pull layout")
+
+    def call():
+        return fp_ops.frontier_pull_fused(rcsr, src, dst, f, v,
+                                          layout=layout)
+
+    def wrapper():
+        return fp_ops.frontier_pull_fused(rcsr, src, dst, f, v)
+
     want = frontier_pull_ref(rcsr, src, dst, f, v)
-    torch.cuda.synchronize()
-    require(got.dtype == want.dtype and torch.equal(got, want),
-            "frontier_pull differs from its plain version")
+    got = call()
+    for g, what in ((got, "the kernel"), (wrapper(), "the wrapper"),
+                    (frontier_pull_layout_ref(layout, f, v),
+                     "the layout's plain version")):
+        torch.cuda.synchronize()
+        require(g.dtype == want.dtype and torch.equal(g, want),
+                f"frontier_pull: {what} differs from the plain version")
     e, nv = rcsr.num_edges, f.shape[0]
     vtx = dst[rcsr.perm].clamp(0, nv - 1)
     nbr = src[rcsr.perm].clamp(0, nv - 1)
-    # what this run needs: join_src only at the entries whose vertex is
-    # unvisited, and the frontier bytes of their in-neighbors, each once
     open_entries = ~v[vtx]
     pending = int(open_entries.sum())
     needed = int(torch.unique(nbr[open_entries]).numel())
-    # perm and join_dst in full, visited once, the needed join_src entries
-    # and frontier bytes, the (V,) output written once
     nbytes = e * 4 + e * 4 + nv + pending * 4 + needed + nv
+    walk_ms = bound_ms(walk_bytes(layout, f, v))
     return {
+        "max_abs_err": max_abs_err(got, want),
+        "ms": time_ms(call, flush),
+        "wrapper_ms": time_ms(wrapper, flush),
+        "plain_ms": time_ms(lambda: frontier_pull_ref(rcsr, src, dst, f, v),
+                            flush),
+        "bound_ms": walk_ms,
+        "layout_bound_ms": walk_ms,
+        "entry_bound_ms": bound_ms(nbytes),
+        "bound_by": "bytes",
+        "library_ms": None,
+        "shape": f"E={e} V={nv} frontier={int(f.sum())} "
+                 f"unvisited={int((~v).sum())} open_entries={pending} "
+                 f"needed={needed} tiles={layout.tile_vtx.shape[0]} "
+                 f"next={int(got.sum())}",
+    }, call
+
+
+def hub_input(ds):
+    """The inbound view's hub, vertex 0 (83,619 entries): unvisited, with
+    its last in-neighbor the only frontier vertex and every other vertex
+    visited, so its tiles are read to the end."""
+    layout = ds.context("inbound").pull_layout
+    last = int(layout.nbr[int(layout.ptr[1]) - 1])
+    f = torch.zeros((ds.num_vertices,), dtype=torch.bool, device=DEVICE)
+    f[last] = True
+    v = torch.ones_like(f)
+    v[0] = False
+    return f, v
+
+
+def pull_cases_on_card() -> dict:
+    """Each :func:`pull_case` on the card: the kernel over a layout built
+    there, and the wrapper building its own, bit-equal to the plain
+    version.  Returns each case's V, E, tiles and next-frontier size."""
+    cases = {}
+    for case in PULL_CASES:
+        src, dst, frontier, visited = (torch.from_numpy(a).to(DEVICE)
+                                       for a in pull_case(case))
+        nv = frontier.shape[0]
+        rcsr = build_csr(dst, nv)
+        layout = build_pull_layout(rcsr, src, dst, nv)
+        want = frontier_pull_ref(rcsr, src, dst, frontier, visited)
+        for got in (fp_ops.frontier_pull_fused(rcsr, src, dst, frontier,
+                                               visited, layout=layout),
+                    fp_ops.frontier_pull_fused(rcsr, src, dst, frontier,
+                                               visited)):
+            torch.cuda.synchronize()
+            require(torch.equal(got, want),
+                    f"frontier_pull case {case}: differs")
+        cases[case] = {"V": nv, "E": layout.num_edges,
+                       "tiles": layout.tile_vtx.shape[0],
+                       "next": int(want.sum())}
+    return cases
+
+
+def frontier_pull_phase(ds, frontier, visited, level, flush):
+    """The first pull level of ``diropt`` root 0 (the kernel line's entry),
+    the inbound view's hub and the shared cases, each bit-equal to the
+    plain version.  Returns the entry, the cases and each shape's call,
+    for :func:`pull_profile`."""
+    ds.ensure_pull_layout("outbound")
+    ds.ensure_pull_layout("inbound")
+    main, main_call = frontier_pull_shape(
+        ds.context("outbound"), frontier.to(DEVICE), visited.to(DEVICE),
+        flush)
+    main["shape"] = f"level={level} " + main["shape"]
+    hub, hub_call = frontier_pull_shape(ds.context("inbound"),
+                                        *hub_input(ds), flush)
+    nxt = hub_call()
+    require(bool(nxt[0]) and int(nxt.sum()) == 1,
+            "frontier_pull hub: the next frontier is not vertex 0 alone")
+    entry = {
         "name": "frontier_pull", "route": "cuda",
         "source": "src/repro_torch/csrc/frontier_pull.cu",
         "replaces": "src/repro/kernels/frontier_pull/frontier_pull.py:60",
-        "max_abs_err": max_abs_err(got, want),
-        "ms": time_ms(lambda: fp_ops.frontier_pull_fused(rcsr, src, dst, f,
-                                                         v), flush),
-        "plain_ms": time_ms(lambda: frontier_pull_ref(rcsr, src, dst, f, v),
-                            flush),
-        "bound_ms": bound_ms(nbytes), "bound_by": "bytes",
-        "library_ms": None,
-        "shape": f"E={e} V={nv} level={level} frontier={int(f.sum())} "
-                 f"unvisited={int((~v).sum())} open_entries={pending} "
-                 f"needed={needed} "
-                 f"next={int(got.sum())}",
+        **main, "hub": hub,
     }
+    return entry, pull_cases_on_card(), {"main": main_call, "hub": hub_call}
+
+
+PULL_KERNELS = ("frontier_pull_rows", "frontier_pull_tiles")
+
+
+def pull_profile(calls: dict, flush) -> dict:
+    """``frontier_pull``'s device launches per call (1 at the main shape,
+    whose layout has no hub tile; 2 at the hub) and the mean time of each
+    kernel, with no memset among the device events."""
+    out = {}
+    for (case, fn), kernels in zip(calls.items(), (1, 2)):
+        launches, by_key = device_profile(fn, flush)
+        require(launches == kernels and not any(
+            "memset" in k.lower() for k in by_key),
+            f"frontier_pull ({case}): {launches} device launches "
+            f"{sorted(by_key)}, want {kernels} and no memset")
+        out[case] = {"device_launches_per_call": launches,
+                     "device_ms_by_kernel": kernel_times(
+                         by_key, PULL_KERNELS[:kernels],
+                         f"frontier_pull ({case})")}
+    return out
 
 
 def spmm_case(x, src, dst, w, num_out: int, check: str, flush):
@@ -1320,9 +1447,11 @@ def main() -> None:
                                      out_cols, flush)
     print("late_gather cases: " + json.dumps(lg_cases))
     diropt_root0 = expected_dense[DENSE_ENGINES.index("diropt") * 4]
-    fp = frontier_pull_phase(ds, *pull_input(diropt_root0, cols,
-                                             SPEC.num_vertices), flush)
+    fp, fp_cases, fp_calls = frontier_pull_phase(
+        ds, *pull_input(diropt_root0, cols, SPEC.num_vertices), flush)
     print(f"frontier_pull input: {fp['shape']}")
+    print(f"frontier_pull hub input: {fp['hub']['shape']}")
+    print("frontier_pull cases: " + json.dumps(fp_cases))
     bitmap_sum0 = expected_weighted[weighted_requests.index(
         Request("bitmap", "outbound", 0, "aggregate_sum"))]
     sp, sp_cases, sp_calls = spmm_segment_phase(bitmap_sum0, cols,
@@ -1446,8 +1575,10 @@ def main() -> None:
         print(f"request {req}: count {int(r.count)} depth {int(r.depth)} "
               f"overflow {bool(r.overflow)} warm latency {warm[req]:.3f} ms "
               f"(median of 3, host clock){dirs}")
+    layouts_mb = {d: l.nbytes / 2 ** 20 for d, l in ds.pull_layouts.items()}
     print(f"main path: {len(all_requests)} requests equal to the CPU run; "
-          f"peak device memory {peak_mb:.1f} MiB")
+          f"peak device memory {peak_mb:.1f} MiB, frontier_pull layouts "
+          f"{json.dumps(layouts_mb)} MiB of it")
     # every engine's root 0 (PERF.md's limit reads these), the fused view's
     # widest PRecursive request, the two weighted paths' root 0, and the
     # inbound aggregate_sum whose kernel rows are skewed (vertex 0 owns
@@ -1461,6 +1592,17 @@ def main() -> None:
                         "aggregate_sum")]:
         print("profile: " + json.dumps(profile_call(
             str(req), lambda req=req: run_request(ds, req), warm[req])))
+
+    forced = forced_plans["diropt"](expand_fn=fe_ops.frontier_expand_fused,
+                                    pull_fn=fp_ops.frontier_pull_fused)
+
+    def forced_call():
+        return execute(forced, ds.context(), 0, SPEC.num_vertices)
+    ms = warm_latency_ms(forced_call)
+    label = "diropt forced pull root 0"
+    print(f"request {label}: warm latency {ms:.3f} ms (median of 3, host "
+          f"clock)")
+    print("profile: " + json.dumps(profile_call(label, forced_call, ms)))
 
     one_p99, retrieval = recsys_requests[0], recsys_requests[-1]
     for req in (one_p99, bulk, retrieval):
@@ -1488,6 +1630,12 @@ def main() -> None:
     print("embedding_bag profile: " + json.dumps(
         {case: {"ms": eb_cases[case]["ms"], **p}
          for case, p in eb_profile.items()}))
+    fp_profile = pull_profile(fp_calls, flush)
+    fp["kernel_device_ms"] = \
+        fp_profile["main"]["device_ms_by_kernel"]["frontier_pull_rows"]
+    fp["device_launches_per_call"] = \
+        fp_profile["main"]["device_launches_per_call"]
+    print("frontier_pull profile: " + json.dumps(fp_profile))
     print(f"script: {time.perf_counter() - t_start:.3f} s from the build "
           f"on (host clock)")
     print(json.dumps({"kernels": list(kernels.values())}))

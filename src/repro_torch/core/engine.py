@@ -23,6 +23,7 @@ from typing import Dict, Literal, Optional
 import torch
 
 from ..kernels.frontier_expand.ops import frontier_expand_fused
+from ..kernels.frontier_pull.layout import PullLayout, build_pull_layout
 from ..kernels.frontier_pull.ops import frontier_pull_fused
 from ..kernels.spmm_segment.ops import spmm_segment_sorted
 from .bitmap import (bitmap_plan, diropt_hybrid_plan, diropt_plan,
@@ -148,7 +149,8 @@ class Dataset:
     Direction views are built on first use and cached on the instance.  The
     reverse CSR (over ``to``) serves ``inbound``, the pull steps of an
     outbound query, and the fused ``both`` view, which adds only one merged
-    (V+1) indptr on top of it."""
+    (V+1) indptr on top of it.  The ``frontier_pull`` kernel's reverse
+    layout is built on first use per orientation (``pull_layouts``)."""
 
     table: ColumnTable
     csr: CSRIndex
@@ -159,6 +161,9 @@ class Dataset:
     weights: Dict[str, torch.Tensor] = dataclasses.field(
         default_factory=dict, compare=False, repr=False)  # weight columns
     #   cast to float32, built on first use
+    pull_layouts: Dict[str, PullLayout] = dataclasses.field(
+        default_factory=dict, compare=False, repr=False)  # per orientation
+    #   ("outbound" / "inbound"), built on first use
 
     @classmethod
     def prepare(cls, table: ColumnTable, num_vertices: int, device=None
@@ -188,6 +193,22 @@ class Dataset:
             object.__setattr__(self, "both_indptr",
                                merged_indptr(self.csr, self.rcsr))
 
+    def ensure_pull_layout(self, direction: str) -> None:
+        """Build + cache the ``frontier_pull`` kernel's reverse layout of
+        one orientation (about 4 (E + V) bytes, 8 MiB at 2^20 edges): over
+        the reverse CSR for ``outbound``, over the CSR for ``inbound``.  The
+        fused ``both`` view takes no kernel and has none."""
+        self.ensure_direction(direction)
+        if direction == "both" or direction in self.pull_layouts:
+            return
+        self.ensure_reverse()
+        frm, to = self.table.column("from"), self.table.column("to")
+        if direction == "inbound":
+            layout = build_pull_layout(self.csr, to, frm, self.num_vertices)
+        else:
+            layout = build_pull_layout(self.rcsr, frm, to, self.num_vertices)
+        self.pull_layouts[direction] = layout
+
     def edge_weights(self, weight_col: str) -> torch.Tensor:
         """The (E,) float32 ⊗-weight column in real position order,
         converted once per column and cached on the instance."""
@@ -207,20 +228,24 @@ class Dataset:
                 weight_col: Optional[str] = None) -> Context:
         """The direction-resolved join view the operators run against;
         ``weight_col`` attaches the edge-weight column (weighted
-        workloads)."""
+        workloads), and the orientation's pull layout rides along once
+        built."""
         self.ensure_direction(direction)
         frm, to = self.table.column("from"), self.table.column("to")
         w = self.edge_weights(weight_col) if weight_col is not None else None
+        layout = self.pull_layouts.get(direction)
         if direction == "inbound":
             return Context(table=self.table, csr=self.rcsr, join_src=to,
-                           join_dst=frm, rcsr=self.csr, edge_weights=w)
+                           join_dst=frm, rcsr=self.csr, edge_weights=w,
+                           pull_layout=layout)
         if direction == "both":
             return Context(table=self.table, csr=self.csr, join_src=frm,
                            join_dst=to, rcsr=self.rcsr,
                            both_indptr=self.both_indptr, bidir=True,
                            edge_weights=w)
         return Context(table=self.table, csr=self.csr, join_src=frm,
-                       join_dst=to, rcsr=self.rcsr, edge_weights=w)
+                       join_dst=to, rcsr=self.rcsr, edge_weights=w,
+                       pull_layout=layout)
 
 
 def query_context(q: RecursiveQuery, ds: Dataset) -> Context:
@@ -234,16 +259,16 @@ def run_query(q: RecursiveQuery, ds: Dataset, root: int) -> BFSResult:
     """Execute one query through the fixed-point driver.  On a CUDA dataset
     the hand-written kernels run in place of their plain versions:
     ``frontier_expand`` in every positional IndexJoin, ``frontier_pull`` in
-    every pull step, for which the reverse CSR is built first (once per
-    dataset), and ``spmm_segment`` in the dense (sum, ×) combine.  The
-    result is bit-identical to the plain run, except that a (sum, ×) or
-    (mul, ×) vertex value that combines several arrivals may differ in its
-    last bits (summation order)."""
+    every pull step, for which the reverse CSR and the direction's pull
+    layout are built first (once per dataset), and ``spmm_segment`` in the
+    dense (sum, ×) combine.  The result is bit-identical to the plain run,
+    except that a (sum, ×) or (mul, ×) vertex value that combines several
+    arrivals may differ in its last bits (summation order)."""
     if ds.device.type != "cuda":
         return execute(build_plan(q), query_context(q, ds), root,
                        ds.num_vertices)
     if q.engine in DIROPT_ENGINE_NAMES:
-        ds.ensure_reverse()
+        ds.ensure_pull_layout(q.direction)
     plan = build_plan(q, expand_fn=frontier_expand_fused,
                       pull_fn=frontier_pull_fused,
                       spmm_fn=spmm_segment_sorted)

@@ -62,6 +62,7 @@ from typing import Callable, Dict, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from ..kernels.frontier_pull.layout import PullLayout
 from ..kernels.frontier_pull.ref import frontier_pull_ref
 from ..kernels.spmm_segment.ops import segments
 from .csr import CSRIndex, expand_frontier, expand_frontier_both
@@ -119,7 +120,9 @@ class Context:
     view for ``direction='both'`` with ``both_indptr`` the merged out+in
     indptr.  ``edge_weights`` is the (E,) float32 ⊗ weight per edge in
     real position order (shared by both orientations of the fused view);
-    None for unweighted traffic, which traverses with all-ones."""
+    None for unweighted traffic, which traverses with all-ones.
+    ``pull_layout`` is the ``frontier_pull`` kernel's reverse layout of
+    ``rcsr`` (None until the dataset builds it)."""
 
     table: ColumnTable
     csr: Optional[CSRIndex]
@@ -129,6 +132,7 @@ class Context:
     both_indptr: Optional[torch.Tensor] = None
     bidir: bool = False
     edge_weights: Optional[torch.Tensor] = None
+    pull_layout: Optional[PullLayout] = None
 
 
 class HostCounts(NamedTuple):
@@ -328,8 +332,9 @@ def _dense_pull(ctx: Context, frontier_v: torch.Tensor,
     """One dense PULL (Beamer bottom-up) step: the next frontier is every
     UNVISITED vertex with an in-neighbor (over the join view) in the
     frontier bitmap.  Over the reverse CSR, ``pull_fn`` (the
-    ``frontier_pull`` kernel wrapper) or, without one, its plain version
-    computes it.  The fused view takes no kernel, as in the reference."""
+    ``frontier_pull`` kernel wrapper, handed the context's pull layout) or,
+    without one, its plain version computes it.  The fused view takes no
+    kernel, as in the reference."""
     nv = frontier_v.shape[0]
     cand = ~visited
     empty = torch.zeros_like(frontier_v)
@@ -345,9 +350,11 @@ def _dense_pull(ctx: Context, frontier_v: torch.Tensor,
             "the frontier_pull kernel walks the reverse CSR; call "
             "Dataset.ensure_reverse() before plugging it into a pull step")
     if ctx.rcsr is not None:
-        pull = pull_fn or frontier_pull_ref
-        return pull(ctx.rcsr, ctx.join_src, ctx.join_dst, frontier_v,
-                    visited)
+        if pull_fn is None:
+            return frontier_pull_ref(ctx.rcsr, ctx.join_src, ctx.join_dst,
+                                     frontier_v, visited)
+        return pull_fn(ctx.rcsr, ctx.join_src, ctx.join_dst, frontier_v,
+                       visited, layout=ctx.pull_layout)
     # no reverse CSR built (an outbound-only dataset on the CPU): the same
     # bottom-up test in natural edge order, with an identical result
     src = ctx.join_src.clamp(0, nv - 1)

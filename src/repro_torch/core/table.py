@@ -8,6 +8,7 @@ ports the row-store engines.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Dict, Mapping, Sequence
 
 import numpy as np
@@ -67,10 +68,12 @@ class ColumnTable:
         its own dtype (a 1-D column as an (R, 1) table): on the card one
         kernel launch per 32 columns.  A position in [-R, 0) counts from
         the end once; one >= R (the padding sentinel) or below -R gives
-        zeros."""
+        zeros.  An empty table (R = 0) raises IndexError unless there is
+        no position."""
         names = self.names if names is None else tuple(names)
         cols = [self.columns[name] for name in names]
         rows = late_gather_columns(
-            [col.reshape(col.shape[0], -1) for col in cols], positions)
+            [col.reshape(col.shape[0], math.prod(col.shape[1:]))
+             for col in cols], positions)
         return {name: r.reshape(positions.shape + col.shape[1:])
                 for name, col, r in zip(names, cols, rows)}

@@ -7,76 +7,137 @@
 //   two perm-ordered gathers and the per-vertex segment-OR + `& ~visited`
 //   that its wrapper (ops.py, frontier_pull_fused) runs around it in XLA.
 //
-// What bounds it on an H100: device-memory bytes.  Per reverse-CSR entry q
-// it reads perm[q] (coalesced) and two scattered int32 columns at perm[q];
-// the (V,) byte bitmaps are a few MB at most and mostly L2 hits.  About
-// E x 12 bytes plus the bitmaps and the (V,) output against 3.35 TB/s; no
-// arithmetic to speak of.
+// Input: the reverse layout (kernels/frontier_pull/layout.py), built once
+// per dataset and orientation: ptr (V+1), the clamped in-neighbors nbr (E)
+// in reverse-CSR order, and the hub tiles (tile_vtx, tile_start) of every
+// row longer than kShortRow.
 //
-// Design: one thread per reverse-CSR entry q.  The TPU kernel resolved both
-// bitmap lookups with chunked one-hot masked sums because VMEM has no
-// dynamic gather, and left the segment-OR to an XLA scatter-max; here a
-// thread gathers directly and stores the OR itself.  Every writer of
-// out[vtx] stores the same byte 1, so the OR needs no atomics, and the
-// store is gated on !visited[vtx], so the reference's final `& ~visited`
-// is part of the test.  visited is tested first: as the traversal
-// saturates most entries stop before the frontier gather.  Ids are clamped
-// onto [0, V) as the reference clips them, per entry (a walk over indptr
-// would miss entries whose id is out of range: build_csr leaves them in
-// perm but out of indptr's counts).  The output is zeroed on the stream
-// before the launch.
+// What bounds it on an H100: device-memory bytes and, at a level where
+// few vertices are open, launch latency.  Every vertex reads its visited
+// byte and writes its output byte, coalesced (2 V bytes); only an
+// unvisited vertex reads its two ptr words and its row of nbr, up to the
+// first entry whose in-neighbor is in the frontier (one scattered byte
+// each).  The TPU kernel tested every entry with chunked one-hot masked
+// sums (VMEM has no dynamic gather) and left the OR to an XLA scatter-max;
+// here the walk stops at the first hit, and nothing is read for a vertex
+// already visited.
+//
+// Design: two kernels from one C call, on one stream.
+//   frontier_pull_rows — one thread per vertex.  It writes out[v] once:
+//     0 when visited; otherwise it walks a row of at most kShortRow
+//     entries, kBatch entries' loads in flight at a time, stopping after
+//     the first batch with a hit.  A longer row is left 0 here.
+//   frontier_pull_tiles — one warp per hub tile of kTile entries (8 a
+//     lane, all loads in flight), launched only when the layout has tiles.
+//     A tile of an unvisited vertex with a hit stores 1; several tiles of
+//     one row store the same byte, so no atomics, and the stream orders
+//     them after the rows kernel's 0.  One thread walking the deployment
+//     tree's 83,619-entry row would set the whole call's time; its tiles
+//     spread it over 327 warps.
+// Every output byte is written by the kernels, so no memset precedes them.
+// The result is boolean: bit-equal to the plain version on any input.
 #include <cstdint>
 
 #include <cuda_runtime.h>
 
 namespace {
 
-__device__ __forceinline__ int32_t clamp_id(int32_t v, int32_t hi) {
-  return v < 0 ? 0 : (v > hi ? hi : v);
+constexpr int kThreads = 256;
+constexpr int kWarpsPerBlock = kThreads / 32;
+constexpr int kShortRow = 16;        // SHORT_ROW in layout.py
+constexpr int kTile = 256;           // HUB_TILE in layout.py
+constexpr int kPerLane = kTile / 32;
+constexpr int kBatch = 4;            // a thread row's loads in flight
+
+__global__ void __launch_bounds__(kThreads)
+frontier_pull_rows(const int32_t* __restrict__ ptr,
+                   const int32_t* __restrict__ nbr,
+                   const uint8_t* __restrict__ frontier,
+                   const uint8_t* __restrict__ visited,
+                   uint8_t* __restrict__ out, int32_t num_vertices) {
+  const int64_t v = static_cast<int64_t>(blockIdx.x) * kThreads +
+                    threadIdx.x;
+  if (v >= num_vertices) return;
+  bool hit = false;
+  if (!__ldg(visited + v)) {
+    const int32_t begin = __ldg(ptr + v);
+    const int32_t end = __ldg(ptr + v + 1);
+    if (end - begin <= kShortRow) {
+      for (int32_t q = begin; q < end && !hit; q += kBatch) {
+        int32_t ids[kBatch];
+#pragma unroll
+        for (int k = 0; k < kBatch; ++k)
+          ids[k] = q + k < end ? __ldg(nbr + q + k) : -1;
+#pragma unroll
+        for (int k = 0; k < kBatch; ++k)
+          hit |= ids[k] >= 0 && __ldg(frontier + ids[k]) != 0;
+      }
+    }
+  }
+  out[v] = hit;
 }
 
-__global__ void frontier_pull_kernel(const int32_t* __restrict__ perm,
-                                     const int32_t* __restrict__ join_src,
-                                     const int32_t* __restrict__ join_dst,
-                                     const uint8_t* __restrict__ frontier,
-                                     const uint8_t* __restrict__ visited,
-                                     uint8_t* __restrict__ out,
-                                     int64_t num_entries,
-                                     int32_t num_vertices) {
-  const int64_t q = static_cast<int64_t>(blockIdx.x) * blockDim.x +
-                    threadIdx.x;
-  if (q >= num_entries) return;
-  // perm is a permutation of the E join positions; the clamp keeps a
-  // malformed one inside the columns, as a JAX gather clamps
-  const int32_t p = clamp_id(__ldg(perm + q),
-                             static_cast<int32_t>(num_entries - 1));
-  const int32_t hi = num_vertices - 1;
-  const int32_t vtx = clamp_id(__ldg(join_dst + p), hi);
-  if (__ldg(visited + vtx)) return;
-  const int32_t nbr = clamp_id(__ldg(join_src + p), hi);
-  if (__ldg(frontier + nbr)) out[vtx] = 1;
+__global__ void __launch_bounds__(kThreads)
+frontier_pull_tiles(const int32_t* __restrict__ ptr,
+                    const int32_t* __restrict__ nbr,
+                    const int32_t* __restrict__ tile_vtx,
+                    const int32_t* __restrict__ tile_start,
+                    int32_t num_tiles,
+                    const uint8_t* __restrict__ frontier,
+                    const uint8_t* __restrict__ visited,
+                    uint8_t* __restrict__ out) {
+  // warp-uniform exits, so the whole warp reaches the vote below
+  const int64_t t = static_cast<int64_t>(blockIdx.x) * kWarpsPerBlock +
+                    threadIdx.x / 32;
+  if (t >= num_tiles) return;
+  const int32_t v = __ldg(tile_vtx + t);
+  if (__ldg(visited + v)) return;
+  const int lane = threadIdx.x & 31;
+  const int32_t begin = __ldg(tile_start + t);
+  const int32_t end = min(begin + kTile, __ldg(ptr + v + 1));
+  int32_t ids[kPerLane];
+#pragma unroll
+  for (int k = 0; k < kPerLane; ++k) {
+    const int32_t q = begin + k * 32 + lane;
+    ids[k] = q < end ? __ldg(nbr + q) : -1;
+  }
+  bool hit = false;
+#pragma unroll
+  for (int k = 0; k < kPerLane; ++k)
+    hit |= ids[k] >= 0 && __ldg(frontier + ids[k]) != 0;
+  if (__any_sync(0xffffffffu, hit) && lane == 0) out[v] = 1;
 }
 
 }  // namespace
 
-extern "C" int frontier_pull_launch(const void* perm, const void* join_src,
-                                    const void* join_dst,
-                                    const void* frontier,
+extern "C" int frontier_pull_launch(const void* ptr, const void* nbr,
+                                    const void* tile_vtx,
+                                    const void* tile_start,
+                                    int64_t num_tiles, const void* frontier,
                                     const void* visited, void* out,
-                                    int64_t num_entries,
-                                    int64_t num_vertices, void* stream) {
+                                    int64_t num_vertices, int64_t short_row,
+                                    int64_t tile, void* stream) {
+  // the layout must have been cut for this kernel's row limit and tile
+  if (short_row != kShortRow || tile != kTile || num_vertices < 1 ||
+      num_vertices > INT32_MAX || num_tiles < 0 || num_tiles > INT32_MAX)
+    return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = cudaMemsetAsync(out, 0, num_vertices, s);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  constexpr int kThreads = 256;
-  const int64_t blocks = (num_entries + kThreads - 1) / kThreads;
-  frontier_pull_kernel<<<static_cast<unsigned>(blocks), kThreads, 0, s>>>(
-      static_cast<const int32_t*>(perm),
-      static_cast<const int32_t*>(join_src),
-      static_cast<const int32_t*>(join_dst),
-      static_cast<const uint8_t*>(frontier),
-      static_cast<const uint8_t*>(visited), static_cast<uint8_t*>(out),
-      num_entries, static_cast<int32_t>(num_vertices));
+  const auto* p = static_cast<const int32_t*>(ptr);
+  const auto* n = static_cast<const int32_t*>(nbr);
+  const auto* f = static_cast<const uint8_t*>(frontier);
+  const auto* vis = static_cast<const uint8_t*>(visited);
+  auto* o = static_cast<uint8_t*>(out);
+  const int64_t row_blocks = (num_vertices + kThreads - 1) / kThreads;
+  frontier_pull_rows<<<static_cast<unsigned>(row_blocks), kThreads, 0, s>>>(
+      p, n, f, vis, o, static_cast<int32_t>(num_vertices));
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || num_tiles == 0) return static_cast<int>(err);
+  const int64_t tile_blocks = (num_tiles + kWarpsPerBlock - 1) /
+                              kWarpsPerBlock;
+  frontier_pull_tiles<<<static_cast<unsigned>(tile_blocks), kThreads, 0,
+                        s>>>(p, n, static_cast<const int32_t*>(tile_vtx),
+                             static_cast<const int32_t*>(tile_start),
+                             static_cast<int32_t>(num_tiles), f, vis, o);
   return static_cast<int>(cudaGetLastError());
 }
 

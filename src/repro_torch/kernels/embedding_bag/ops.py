@@ -19,6 +19,7 @@ from typing import Optional
 import torch
 
 from ..late_gather.ops import late_gather
+from ..late_gather.ref import require_rows
 from ..spmm_segment.ops import segments
 from .embedding_bag import embedding_bag_cuda
 from .ref import check_combiner, embedding_bag_ref
@@ -35,6 +36,7 @@ def embedding_bag_sorted(table: torch.Tensor, indices: torch.Tensor,
     kernel reads ``offsets`` and no ``seg``; the plain version reads
     ``seg``."""
     global LAUNCHES
+    require_rows(table.shape[0], indices.shape[0])
     if table.device.type == "cpu" and indices.device.type == "cpu":
         return embedding_bag_ref(table, indices, seg, offsets.shape[0] - 1,
                                  weights, combiner=combiner)
@@ -53,7 +55,9 @@ def embedding_bag(table: torch.Tensor, indices: torch.Tensor,
     """(R, D) ``table``, (I,) int32 ``indices`` and ``segment_ids`` (any
     order), (I,) ``weights`` (None: all ones) -> (num_bags, D).
     ``combiner="mean"`` divides each bag by its count of indices < R, at
-    least 1.  On the card the table must be float32."""
+    least 1.  On the card the table must be float32.  An empty table
+    (R = 0) raises IndexError unless I = 0, before any launch."""
+    require_rows(table.shape[0], indices.shape[0])
     if table.device.type == "cpu" and indices.device.type == "cpu":
         return embedding_bag_ref(table, indices, segment_ids, num_bags,
                                  weights, combiner=combiner)

@@ -13,6 +13,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..late_gather.ref import require_rows
 from .embedding_bag import bag_layout
 
 COMBINERS = ("sum", "mean")
@@ -47,9 +48,11 @@ def embedding_bag_ref(table: torch.Tensor, indices: torch.Tensor,
     R + idx), as a JAX index does; one below -R contributes zero.  A
     segment id outside [0, num_bags) is dropped; a bag with no entry is
     zero.  ``combiner="mean"`` divides each bag by its count of indices
-    < R, at least 1."""
+    < R, at least 1.  An empty table (R = 0) raises IndexError unless
+    I = 0, as the reference's ``jnp.take`` does."""
     check_combiner(combiner)
     r, d = table.shape
+    require_rows(r, indices.shape[0])
     idx = indices.long()
     idx = torch.where(idx < 0, idx + r, idx)
     live = (idx >= 0) & (idx < r)

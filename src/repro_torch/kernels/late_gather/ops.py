@@ -11,7 +11,7 @@ from typing import Sequence
 import torch
 
 from .late_gather import MAX_COLUMNS, late_gather_cuda
-from .ref import late_gather_columns_ref
+from .ref import late_gather_columns_ref, require_rows
 
 LAUNCHES = 0
 
@@ -21,10 +21,13 @@ def late_gather_columns(tables: Sequence[torch.Tensor],
     """(R, W_c) tables of one R, (P,) int32 positions -> the (P, W_c) rows
     of each table in its own dtype: row p for 0 <= p < R, row p + R for
     -R <= p < 0 (counted from the end once), a zero row for p >= R (the
-    padding sentinel ``num_rows``) or p < -R.  On the card one launch per
-    MAX_COLUMNS columns, none when the outputs are empty."""
+    padding sentinel ``num_rows``) or p < -R.  An empty table (R = 0)
+    raises IndexError unless P = 0, before any launch.  On the card one
+    launch per MAX_COLUMNS columns, none when the outputs are empty."""
     global LAUNCHES
     tables = list(tables)
+    if tables:
+        require_rows(tables[0].shape[0], positions.shape[0])
     if positions.device.type == "cpu" and \
             all(t.device.type == "cpu" for t in tables):
         return late_gather_columns_ref(tables, positions)

@@ -47,6 +47,9 @@ from repro_torch.kernels.embedding_bag.ref import (BAG_LAYOUT_CASES,
 from repro_torch.kernels.frontier_expand import (EXPAND_CASES, expand_case,
                                                  frontier_expand_cuda)
 from repro_torch.kernels.frontier_expand import ops as fe_ops
+from repro_torch.kernels.frontier_pull import (PULL_CASES, build_pull_layout,
+                                               frontier_pull_layout_ref,
+                                               pull_case)
 from repro_torch.kernels.frontier_pull import ops as fp_ops
 from repro_torch.kernels.frontier_pull.ref import frontier_pull_ref
 from repro_torch.core.table import ColumnTable
@@ -302,6 +305,76 @@ def test_frontier_pull_kernel_matches_plain(cuda, seed):
     assert got.dtype == torch.bool and torch.equal(got.cpu(), want)
 
 
+@pytest.mark.parametrize("case", PULL_CASES)
+def test_frontier_pull_cases_on_card(cuda, case):
+    """Each shared case: the kernel over a layout built on the card equals
+    both plain versions bit for bit, one LAUNCHES step per call with the
+    layout reused, and the call without a layout builds its own (no launch
+    without edges)."""
+    src, dst, frontier, visited = pull_case(case)
+    v = frontier.shape[0]
+    host = [torch.from_numpy(a) for a in (src, dst, frontier, visited)]
+    want = frontier_pull_ref(build_csr(host[1], v), *host)
+    card = [a.to(cuda) for a in host]
+    rcsr = build_csr(card[1], v)
+    layout = build_pull_layout(rcsr, card[0], card[1], v)
+    assert torch.equal(frontier_pull_layout_ref(layout, *card[2:]).cpu(),
+                       want)
+    before = fp_ops.LAUNCHES
+    got = [fp_ops.frontier_pull_fused(rcsr, *card, layout=layout)
+           for _ in range(2)]
+    got.append(fp_ops.frontier_pull_fused(rcsr, *card))
+    torch.cuda.synchronize()
+    assert fp_ops.LAUNCHES == before + 3 * (src.shape[0] > 0)
+    for g in got:
+        assert g.dtype == torch.bool and torch.equal(g.cpu(), want)
+
+
+@pytest.mark.parametrize("case,kernels", [("random", 1), ("hub_last", 2)])
+def test_frontier_pull_device_launches(cuda, case, kernels):
+    """One call is the rows kernel alone, or with the tiles kernel when the
+    layout has hub tiles, counted by torch.profiler: no memset."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    src, dst, frontier, visited = (torch.from_numpy(a).to(cuda)
+                                   for a in pull_case(case))
+    rcsr = build_csr(dst, frontier.shape[0])
+    layout = build_pull_layout(rcsr, src, dst, frontier.shape[0])
+    fp_ops.frontier_pull_fused(rcsr, src, dst, frontier, visited,
+                               layout=layout)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fp_ops.frontier_pull_fused(rcsr, src, dst, frontier, visited,
+                                   layout=layout)
+        torch.cuda.synchronize()
+    launched = {e.key: e.count for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA}
+    assert sum(launched.values()) == kernels, launched
+    assert not any("memset" in k.lower() for k in launched), launched
+    names = ("frontier_pull_rows", "frontier_pull_tiles")[:kernels]
+    for name in names:
+        assert any(name in k for k in launched), (name, launched)
+
+
+def test_dataset_builds_each_pull_layout_once_on_card(cuda):
+    """``run_query`` with a direction-optimizing engine builds the
+    direction's layout on the card once and reuses it: the next query
+    finds the same tensors."""
+    spec = TreeSpec(num_vertices=3000, height=10, payload_cols=1, seed=11)
+    ds = dataset_from_numpy(make_edge_table(spec), 3000, cuda)
+    for direction, root in (("outbound", 0), ("inbound", 2999)):
+        q = RecursiveQuery("diropt", 10, 1, EngineCaps(4096, 8192),
+                           direction=direction)
+        run_query(q, ds, root)
+        layout = ds.pull_layouts[direction]
+        assert layout.ptr.device.type == "cuda"
+        run_query(q, ds, root)
+        assert ds.pull_layouts[direction] is layout
+        assert ds.context(direction).pull_layout is layout
+    assert set(ds.pull_layouts) == {"outbound", "inbound"}
+
+
 ENGINES = ("precursive", "bitmap", "hybrid", "diropt", "diropt_hybrid")
 
 
@@ -538,3 +611,30 @@ def test_deepfm_on_card_matches_cpu(cuda, table_dtype, monkeypatch):
                                 cand.to(cuda)).cpu().float(),
         recsys.retrieval_scores(params, cfg, *one, cand).float(),
         rtol=2e-5 if table_dtype == "float32" else 2 ** -7, atol=2e-5)
+
+
+def test_empty_table_raises_before_any_launch_on_card(cuda):
+    """An empty table (R = 0) and at least one position or index raises
+    IndexError on the card route of ``late_gather`` and ``embedding_bag``,
+    as the reference does, and launches nothing."""
+    tab = torch.zeros((0, 4), device=cuda)
+    idx = torch.tensor([0, 1, -1], dtype=torch.int32, device=cuda)
+    seg = torch.tensor([0, 0, 1], dtype=torch.int32, device=cuda)
+    before = lg_ops.LAUNCHES, eb_ops.LAUNCHES
+    s = spmm_ops.segments(seg, 2)
+    for call in (lambda: lg_ops.late_gather(tab, idx),
+                 lambda: lg_ops.late_gather_columns([tab, tab[:, :1]], idx),
+                 lambda: ColumnTable({"a": tab[:, 0]}).take(idx),
+                 lambda: eb_ops.fixed_hot_lookup(tab, idx.reshape(1, -1)),
+                 lambda: eb_ops.embedding_bag(tab, idx, seg, 2),
+                 lambda: eb_ops.embedding_bag(tab, idx, seg, 2,
+                                              combiner="mean"),
+                 lambda: eb_ops.embedding_bag_sorted(tab, idx[s.order], s.seg,
+                                                     None, s.offsets)):
+        with pytest.raises(IndexError):
+            call()
+    torch.cuda.synchronize()
+    assert (lg_ops.LAUNCHES, eb_ops.LAUNCHES) == before
+    none = torch.zeros((0,), dtype=torch.int32, device=cuda)
+    assert lg_ops.late_gather(tab, none).shape == (0, 4)
+    assert not eb_ops.embedding_bag(tab, none, none, 2).any()

@@ -292,3 +292,39 @@ def test_bag_layout_choice(dim, ptr, want):
     warp; up to 128 units 32 lanes with ceil(U / 32) accumulators; wider
     rows are cut into slices of 128 units."""
     assert tuple(bag_layout(dim, ptr)) == want
+
+
+@pytest.mark.parametrize("combiner", ["sum", "mean"])
+@pytest.mark.parametrize("weighted", [False, True])
+def test_empty_table_raises_index_error_like_reference(weighted, combiner):
+    """An empty table (R = 0) and at least one index: the reference's
+    plain ``embedding_bag`` raises IndexError (``jnp.take`` from an empty
+    axis), and so do the port's three CPU routes, without a launch; with
+    no index the result is still zero bags."""
+    tab = np.zeros((0, 4), np.float32)
+    idx = np.array([0, 2, -1], np.int32)
+    seg = np.array([0, 1, 1], np.int32)
+    w = np.ones(3, np.float32) if weighted else None
+    with pytest.raises(IndexError):
+        embedding_bag(*jax_args(tab, idx, seg), 2,
+                      None if w is None else jnp.asarray(w),
+                      combiner=combiner)
+    before = eb_ops.LAUNCHES
+    t_tab, t_idx, t_seg = torch_args(tab, idx, seg)
+    t_w = None if w is None else torch.from_numpy(w)
+    s = segments(t_seg, 2)
+    for call in (
+            lambda: eb_ops.embedding_bag(t_tab, t_idx, t_seg, 2, t_w,
+                                         combiner=combiner),
+            lambda: port_embedding_bag_ref(t_tab, t_idx, t_seg, 2, t_w,
+                                           combiner=combiner),
+            lambda: eb_ops.embedding_bag_sorted(
+                t_tab, t_idx[s.order], s.seg,
+                None if t_w is None else t_w[s.order], s.offsets,
+                combiner=combiner)):
+        with pytest.raises(IndexError):
+            call()
+    assert eb_ops.LAUNCHES == before
+    none = torch.zeros((0,), dtype=torch.int32)
+    got = eb_ops.embedding_bag(t_tab, none, none, 2, combiner=combiner)
+    assert got.shape == (2, 4) and not got.any()

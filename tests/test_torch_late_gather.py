@@ -187,3 +187,40 @@ def test_take_and_fixed_hot_lookup_match_jax_fixed_hot_lookup(dtype,
         bits(taken["emb"], unsigned).reshape(b, k, d), want)
     wrapped = np.where(ids < 0, ids + r, ids).reshape(-1)
     assert taken["id"].tolist() == np.where(wrapped < r, wrapped, 0).tolist()
+
+
+@pytest.mark.parametrize("p", [1, 5])
+def test_empty_table_raises_index_error_like_reference(p):
+    """An empty table (R = 0) and at least one position: the reference's
+    plain gather raises IndexError (``jnp.take`` from an empty axis), and
+    so does every CPU route of the port, without a launch."""
+    from repro_torch.kernels.late_gather import ops
+    pos = np.arange(p, dtype=np.int32) - 1
+    with pytest.raises(IndexError):
+        jax_late_gather(jnp.zeros((0, 3), jnp.float32), jnp.asarray(pos))
+    tab, tpos = torch.zeros((0, 3)), torch.from_numpy(pos)
+    before = ops.LAUNCHES
+    for call in (lambda: port_late_gather(tab, tpos),
+                 lambda: port_late_gather_ref(tab, tpos),
+                 lambda: late_gather_columns(
+                     [tab, tab[:, :1].to(torch.int32)], tpos),
+                 lambda: ColumnTable({"a": tab[:, 0]}).take(tpos),
+                 lambda: fixed_hot_lookup(tab, tpos.reshape(1, -1))):
+        with pytest.raises(IndexError):
+            call()
+    assert ops.LAUNCHES == before
+
+
+def test_empty_table_without_positions_keeps_its_result():
+    none = np.zeros((0,), np.int32)
+    want = np.asarray(jax_late_gather(jnp.zeros((0, 3), jnp.float32),
+                                      jnp.asarray(none)))
+    assert want.shape == (0, 3)
+    for got in (port_late_gather(torch.zeros((0, 3)), torch.from_numpy(none)),
+                late_gather_columns([torch.zeros((0, 3))],
+                                    torch.from_numpy(none))[0]):
+        assert got.shape == (0, 3) and got.dtype == torch.float32
+    taken = ColumnTable({"a": torch.zeros((0,), dtype=torch.int32),
+                         "b": torch.zeros((0, 3))}).take(
+        torch.from_numpy(none))
+    assert taken["a"].shape == (0,) and taken["b"].shape == (0, 3)
