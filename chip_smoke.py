@@ -46,8 +46,15 @@ Phases (any failure raises and the script exits non-zero):
    weighted and not, under sum and mean (bit-equal to the CPU run, two
    calls bit-equal), with its device launches per call and its kernel's
    own time at the four shapes read from ``torch.profiler`` after phase
-   3's profile lines; and time the kernel, the plain version and, where
-   one exists, a single PyTorch library call;
+   3's profile lines; the lane axis of ``frontier_expand`` and
+   ``frontier_pull`` (one call for the BATCH_ROOTS lanes of root 0's
+   batch, at root 0's widest expansion level and at ``diropt`` root 0's
+   first pull level, bit-equal to the plain version and to each lane's
+   one-lane call, and every ``expand_lanes_case`` / ``pull_lanes_case``,
+   a shared case stacked as four lanes), with its device launches per
+   call and its kernels' times read last (``frontier_expand lanes:``,
+   ``frontier_pull lanes:``); and time the kernel, the plain version
+   and, where one exists, a single PyTorch library call;
 3. drive three paths at full size on the repo's own deployment
    (``src/repro/configs/posdb_bfs.py``: 2^20-vertex tree of height 16,
    8 payload columns, depth 16, result cap 2^20, plus a float32 edge
@@ -70,8 +77,17 @@ Phases (any failure raises and the script exits non-zero):
    the port's CPU run (positions equal except bucket flips at a bucket
    boundary, which are counted; scores within rtol = atol = 2e-5, TF32
    off), and one ``embedding_bag`` call at the serve_bulk bags as its
-   users call it; warm latencies and ``torch.profiler`` lines follow (the
-   forced-pull ``diropt`` root 0's and the ``bags`` call's among them);
+   users call it; then batched roots through ``run_query_batch``: each
+   engine outbound over BATCH_ROOTS = 8 roots (the PRecursive requests'
+   outbound roots), PRecursive inbound and both ways over 8 roots with
+   the deepest vertex among them, and PRecursive over a 32-root serving
+   bucket, every lane bit-equal to the card's single-root run of its
+   root and root 0's lane to the BFS oracle, each per-level kernel
+   called once a level for all lanes (its launches equal the levels at
+   which some lane calls it), one ``batch:`` line per call; warm
+   latencies and ``torch.profiler`` lines follow (the forced-pull
+   ``diropt`` root 0's, the ``bags`` call's and the 8-root
+   ``precursive`` and ``diropt`` batches' among them);
 4. print one ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}``
    line last.
 
@@ -97,9 +113,10 @@ from repro_torch.convert import dataset_from_numpy  # noqa: E402
 from repro_torch.core.bitmap import (diropt_hybrid_plan,  # noqa: E402
                                      diropt_plan)
 from repro_torch.core.csr import build_csr, expand_frontier  # noqa: E402
-from repro_torch.core.engine import (PUSH_COUNTERPART,  # noqa: E402
-                                     EngineCaps, RecursiveQuery, build_plan,
-                                     run_query)
+from repro_torch.core.engine import (ENGINE_NAMES,  # noqa: E402
+                                     PUSH_COUNTERPART, EngineCaps,
+                                     RecursiveQuery, build_plan, result_lane,
+                                     run_query, run_query_batch)
 from repro_torch.core.operators import execute  # noqa: E402
 from repro_torch.data.recsys_stream import (recsys_batch,  # noqa: E402
                                             vocab_sizes)
@@ -116,11 +133,11 @@ from repro_torch.kernels.embedding_bag.ref import (  # noqa: E402
     layout_table)
 from repro_torch.kernels.frontier_expand import ops as fe_ops  # noqa: E402
 from repro_torch.kernels.frontier_expand.ref import (  # noqa: E402
-    EXPAND_CASES, expand_case)
+    EXPAND_CASES, expand_case, expand_lanes_case)
 from repro_torch.kernels.frontier_pull import ops as fp_ops  # noqa: E402
 from repro_torch.kernels.frontier_pull import (  # noqa: E402
     PULL_CASES, build_pull_layout, frontier_pull_layout_ref,
-    frontier_pull_ref, pull_case)
+    frontier_pull_ref, pull_case, pull_lanes_case)
 from repro_torch.kernels.late_gather import ops as lg_ops  # noqa: E402
 from repro_torch.kernels.late_gather.ref import \
     late_gather_columns_ref  # noqa: E402
@@ -141,6 +158,7 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 FP32_OPS_PER_S = 67e12         # H100 SXM data sheet, float32 off the tensor
 #                                cores
 TIMING_REPS = 20
+PROFILE_TRIES = 3              # sessions taken while one loses its events
 DENSE_ENGINES = ("bitmap", "hybrid", "diropt", "diropt_hybrid")
 FORCE_PULL = dict(alpha=1e9, beta=1e9)
 SEMIRINGS = ("shortest_path", "aggregate_sum", "aggregate_max",
@@ -160,6 +178,9 @@ BULK_BATCH = 262_144
 N_CANDIDATES = 1_000_000
 PARAM_SEED = 0
 NEG_SEED = 4                 # the negative positions of late_gather's checks
+BATCH_ROOTS = 8              # benchmarks/exp1_bfs.py's lockstep batch
+BUCKET_ROOTS = 32            # one serving bucket of the reference's planner
+TRAVERSAL_KERNELS = ("frontier_expand", "frontier_pull")
 
 
 class Request(NamedTuple):
@@ -297,39 +318,50 @@ def read_launches() -> dict:
     return {name: ops.LAUNCHES for name, ops in KERNEL_OPS.items()}
 
 
+def launch_levels(req: Request, r, num_vertices: int) -> dict:
+    """The levels at which the card's run of one request calls each
+    per-level kernel, read off a run's result: ``frontier_expand`` at
+    every executed level of PRecursive (weighted or not) and at each
+    sparse (positional) push level of the hybrid engines,
+    ``frontier_pull`` at each pull level, both only outside the fused
+    ``both`` view (which has no kernel, as in the reference);
+    ``spmm_segment`` at every executed level of a ``bitmap`` aggregate_sum
+    request.  A hybrid level is sparse when its frontier block, the rows
+    first emitted at that level, is below :func:`hybrid_threshold`."""
+    engine, depth = req.engine, int(r.depth)
+    out = {"frontier_expand": set(), "frontier_pull": set(),
+           "spmm_segment": set()}
+    if req.workload == "aggregate_sum" and engine == "bitmap":
+        out["spmm_segment"] = set(range(depth))
+    if req.direction == "both":
+        return out
+    if engine == "precursive":
+        out["frontier_expand"] = set(range(depth))
+        return out
+    dirs = (r.level_dirs.tolist() if r.level_dirs is not None
+            else [0] * depth)
+    widths = torch.bincount(r.row_depths[:int(r.count)].long(),
+                            minlength=depth).tolist()
+    for d in range(depth):
+        if dirs[d] == 1:
+            out["frontier_pull"].add(d)
+        elif engine in ("hybrid", "diropt_hybrid") and \
+                widths[d] < hybrid_threshold(engine, num_vertices):
+            out["frontier_expand"].add(d)
+    return out
+
+
 def expected_launches(requests, results, num_vertices: int) -> dict:
     """The launches the card's run of ``requests`` must make, read off the
-    CPU run's results: ``frontier_expand`` once per executed level of
-    PRecursive (weighted or not) and per sparse (positional) push level of
-    the hybrid engines, ``frontier_pull`` once per pull level, both only
-    outside the fused ``both`` view (which has no kernel, as in the
-    reference); ``spmm_segment`` once per executed level of a ``bitmap``
-    aggregate_sum request; ``late_gather`` once per request (one take of
-    all its output columns); ``embedding_bag`` never.  A hybrid level is sparse when its
-    frontier block, the rows first emitted at that level, is below
-    :func:`hybrid_threshold`."""
-    expand = pull = spmm = 0
+    CPU run's results: each per-level kernel once per level of
+    :func:`launch_levels`; ``late_gather`` once per request (one take of
+    all its output columns); ``embedding_bag`` never."""
+    out = {"frontier_expand": 0, "late_gather": len(requests),
+           "frontier_pull": 0, "spmm_segment": 0, "embedding_bag": 0}
     for req, r in zip(requests, results):
-        engine, depth = req.engine, int(r.depth)
-        if req.workload == "aggregate_sum" and engine == "bitmap":
-            spmm += depth
-        if req.direction == "both":
-            continue
-        if engine == "precursive":
-            expand += depth
-            continue
-        dirs = (r.level_dirs.tolist() if r.level_dirs is not None
-                else [0] * depth)
-        widths = torch.bincount(r.row_depths[:int(r.count)].long(),
-                                minlength=depth).tolist()
-        for d in range(depth):
-            if dirs[d] == 1:
-                pull += 1
-            elif engine in ("hybrid", "diropt_hybrid") and \
-                    widths[d] < hybrid_threshold(engine, num_vertices):
-                expand += 1
-    return {"frontier_expand": expand, "late_gather": len(requests),
-            "frontier_pull": pull, "spmm_segment": spmm, "embedding_bag": 0}
+        for kernel, levels in launch_levels(req, r, num_vertices).items():
+            out[kernel] += len(levels)
+    return out
 
 
 def hybrid_threshold(engine: str, num_vertices: int) -> int:
@@ -341,22 +373,24 @@ def hybrid_threshold(engine: str, num_vertices: int) -> int:
     return max(1, int(num_vertices * step.switch_frac))
 
 
-def require_equal(a, b, label: str) -> None:
-    """Field-for-field, bit-for-bit equality of two BFSResults."""
+def require_equal(a, b, label: str, other: str = "the CPU run") -> None:
+    """Field-for-field, bit-for-bit equality of two BFSResults, compared
+    on ``a``'s device."""
     for field in ("positions", "count", "depth", "overflow", "row_depths",
                   "level_dirs", "vertex_values"):
         x, y = getattr(a, field), getattr(b, field)
         if x is None or y is None:
             require(x is None and y is None, f"{label}: field {field}")
             continue
-        x, y = x.cpu(), y.cpu()
+        y = y.to(x.device)
         require(x.dtype == y.dtype and torch.equal(x, y),
-                f"{label}: field {field} differs from the CPU run")
+                f"{label}: field {field} differs from {other}")
     require(a.values.keys() == b.values.keys(), f"{label}: value columns")
     for k in a.values:
-        x, y = a.values[k].cpu(), b.values[k].cpu()
+        x = a.values[k]
+        y = b.values[k].to(x.device)
         require(x.dtype == y.dtype and torch.equal(x, y),
-                f"{label}: column {k} differs from the CPU run")
+                f"{label}: column {k} differs from {other}")
 
 
 def require_same_rows(a, b, label: str) -> None:
@@ -415,35 +449,58 @@ def widest_level(r0, cols: dict, capacity: int):
 # phase 2: kernels against their plain versions, at the main path's shapes
 # ---------------------------------------------------------------------------
 
-def device_profile(fn, flush) -> tuple[int, dict]:
-    """The device launches of one call of ``fn``, and the mean device time
-    of each of its kernels, by the profiler's name, over TIMING_REPS calls
-    with the L2 evicted before each, from ``torch.profiler``.  Run after
-    the profile lines: an earlier profiler session changes their event
-    counts."""
+def device_events(prof) -> list:
+    """The device-side entries (kernels, copies, fills) of a profiler
+    session's ``key_averages()``."""
     from torch.autograd import DeviceType
+    return [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA]
+
+
+def profiled(run, enough) -> list:
+    """The device events of a ``torch.profiler`` session around ``run()``.
+    On this card a session sometimes loses some or all of its device
+    events (PERF.md §7) and never gains one, so a session is taken again,
+    up to PROFILE_TRIES times, until ``enough(events)``; the fullest one
+    is returned."""
     from torch.profiler import ProfilerActivity, profile
 
-    def device_events(prof):
-        return [e for e in prof.key_averages()
-                if e.device_type == DeviceType.CUDA]
+    best = None
+    for _ in range(PROFILE_TRIES):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+        events = device_events(prof)
+        if best is None or sum(e.count for e in events) > \
+                sum(e.count for e in best):
+            best = events
+        if enough(best):
+            break
+    return best
 
-    activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+
+def device_profile(fn, flush, launches: int) -> tuple[int, dict]:
+    """The device launches of one call of ``fn`` (sessions taken until one
+    sees ``launches``, so a call that makes more still shows more), and
+    the mean device time of each of its kernels, by the profiler's name,
+    over TIMING_REPS calls with the L2 evicted before each, from
+    ``torch.profiler``.  Run after the profile lines: an earlier profiler
+    session changes their event counts."""
     fn()
     torch.cuda.synchronize()
-    with profile(activities=activities) as prof:
-        fn()
-        torch.cuda.synchronize()
-    events = device_events(prof)
-    launches = sum(e.count for e in events)
+    events = profiled(fn, lambda ev: sum(e.count for e in ev) >= launches)
     keys = {e.key for e in events}         # not the L2 flush's fill
-    with profile(activities=activities) as prof:
+
+    def reps():
         for _ in range(TIMING_REPS):
             flush.zero_()
             fn()
-        torch.cuda.synchronize()
-    return launches, {e.key: e.self_device_time_total / e.count / 1e3
-                      for e in device_events(prof) if e.key in keys}
+
+    timed = profiled(reps, lambda ev: keys <= {e.key for e in ev})
+    return sum(e.count for e in events), {
+        e.key: e.self_device_time_total / e.count / 1e3
+        for e in timed if e.key in keys}
 
 
 def kernel_times(by_key: dict, names, label: str) -> dict:
@@ -459,7 +516,7 @@ def kernel_times(by_key: dict, names, label: str) -> dict:
 def expand_profile(fn, flush) -> dict:
     """``frontier_expand``'s device launches per call (3) and the mean
     time of each of its kernels."""
-    launches, by_key = device_profile(fn, flush)
+    launches, by_key = device_profile(fn, flush, 3)
     require(launches == 3, f"frontier_expand: {launches} device launches "
             "in one call, want 3")
     by_kernel = kernel_times(by_key, ("frontier_degree_sums",
@@ -480,7 +537,7 @@ def spmm_profile(calls: dict, flush) -> dict:
     both run)."""
     out = {}
     for case, fn in calls.items():
-        launches, by_key = device_profile(fn, flush)
+        launches, by_key = device_profile(fn, flush, 2)
         require(launches == 2, f"spmm_segment ({case}): {launches} device "
                 "launches in one call, want 2")
         out[case] = {"device_launches_per_call": launches,
@@ -794,7 +851,7 @@ def pull_profile(calls: dict, flush) -> dict:
     kernel, with no memset among the device events."""
     out = {}
     for (case, fn), kernels in zip(calls.items(), (1, 2)):
-        launches, by_key = device_profile(fn, flush)
+        launches, by_key = device_profile(fn, flush, kernels)
         require(launches == kernels and not any(
             "memset" in k.lower() for k in by_key),
             f"frontier_pull ({case}): {launches} device launches "
@@ -804,6 +861,203 @@ def pull_profile(calls: dict, flush) -> dict:
                          by_key, PULL_KERNELS[:kernels],
                          f"frontier_pull ({case})")}
     return out
+
+
+def batch_roots(cols: dict, num_vertices: int) -> list[int]:
+    """BATCH_ROOTS roots: PRecursive's outbound single-root requests (root
+    0, the three depth-1 vertices, the four random roots)."""
+    return [req.root for req in make_requests(cols, num_vertices)
+            if req.direction == "outbound"]
+
+
+def lane_targets(results, cols: dict, level: int, capacity: int):
+    """Each lane's targets at ``level`` of its own traversal, as
+    :func:`widest_level` builds them for root 0: the ``to`` of the lane's
+    rows of level - 1 in emission order, padded to ``capacity``.  Returns
+    (targets (L, capacity), valid (L, capacity), each lane's rows at
+    ``level``) on the CPU."""
+    targets = torch.full((len(results), capacity), -1, dtype=torch.int32)
+    valid = torch.zeros((len(results), capacity), dtype=torch.bool)
+    emitted = []
+    for i, r in enumerate(results):
+        count = int(r.count)
+        pos = r.positions[:count].cpu().numpy()
+        depth = r.row_depths[:count].cpu().numpy()
+        prev = cols["to"][pos[depth == level - 1]]
+        targets[i, :prev.shape[0]] = torch.from_numpy(prev.astype(np.int32))
+        valid[i, :prev.shape[0]] = True
+        emitted.append(int((depth == level).sum()))
+    return targets, valid, emitted
+
+
+def expand_lane_cases_on_card() -> dict:
+    """Each :func:`expand_lanes_case` (a tile case stacked as four lanes:
+    itself, an empty lane, itself reversed, every other target) on the
+    card: one call bit-equal to the plain version on every lane.  Returns
+    each case's per-lane counts and overflow flags and the call's ms."""
+    cases = {}
+    flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device=DEVICE)
+    for case in EXPAND_CASES:
+        src, v, targets, valid, capacity = expand_lanes_case(case)
+        csr = build_csr(torch.from_numpy(src).to(DEVICE), v)
+        t = torch.from_numpy(targets.copy()).to(DEVICE)
+        m = torch.from_numpy(valid.copy()).to(DEVICE)
+        got = fe_ops.frontier_expand_fused(csr, t, m, capacity)
+        want = expand_frontier(csr, t, m, capacity)
+        torch.cuda.synchronize()
+        for g, w, name in zip(got, want, ("positions", "total", "overflow")):
+            require(g.dtype == w.dtype and g.shape == w.shape
+                    and torch.equal(g, w),
+                    f"frontier_expand lane case {case}: {name} differs")
+        cases[case] = {"count": got[1].tolist(), "overflow": got[2].tolist(),
+                       "ms": time_ms(lambda: fe_ops.frontier_expand_fused(
+                           csr, t, m, capacity), flush)}
+    return cases
+
+
+def frontier_expand_lane_phase(ds, targets, valid, capacity, emitted,
+                               flush):
+    """The lane axis at the widest level of root 0's batch: the
+    BATCH_ROOTS lanes' targets at that level in one call, bit-equal to the
+    plain version and to each lane's one-lane call, then timed beside the
+    plain version and the one-lane calls one after another.  Returns the
+    numbers, the stacked cases and the call, for :func:`expand_profile`."""
+    csr = ds.csr
+    t, v = targets.to(DEVICE), valid.to(DEVICE)
+    lanes = t.shape[0]
+    got = fe_ops.frontier_expand_fused(csr, t, v, capacity)
+    want = expand_frontier(csr, t, v, capacity)
+    torch.cuda.synchronize()
+    for g, w, name in zip(got, want, ("positions", "total", "overflow")):
+        require(g.dtype == w.dtype and torch.equal(g, w),
+                f"frontier_expand lanes: {name} differs")
+    require(got[1].tolist() == [min(n, capacity) for n in emitted],
+            "frontier_expand lanes: level totals")
+    rows = [(t[i].contiguous(), v[i].contiguous()) for i in range(lanes)]
+    for i, (ti, vi) in enumerate(rows):
+        one = fe_ops.frontier_expand_fused(csr, ti, vi, capacity)
+        require(all(torch.equal(g[i], o) for g, o in zip(got, one)),
+                f"frontier_expand lanes: lane {i} differs from its own call")
+
+    def call():
+        return fe_ops.frontier_expand_fused(csr, t, v, capacity)
+
+    def per_lane_calls():
+        for ti, vi in rows:
+            fe_ops.frontier_expand_fused(csr, ti, vi, capacity)
+
+    live = v.sum(-1).tolist()
+    nbytes = sum(t.shape[1] * 5 + n * 8 + min(e, capacity) * 4 + capacity * 4
+                 for n, e in zip(live, emitted))
+    entry = {
+        "lanes": lanes, "max_abs_err": max_abs_err(got[0], want[0]),
+        "ms": time_ms(call, flush),
+        "per_lane_calls_ms": time_ms(per_lane_calls, flush),
+        "plain_ms": time_ms(lambda: expand_frontier(csr, t, v, capacity),
+                            flush),
+        "bound_ms": bound_ms(nbytes), "bound_by": "bytes",
+        "library_ms": None,
+        "shape": f"L={lanes} F={t.shape[1]} capacity={capacity} "
+                 f"live={live} emitted={emitted}",
+    }
+    return entry, expand_lane_cases_on_card(), call
+
+
+def pull_lane_input(results, roots, cols: dict, num_vertices: int,
+                    level: int):
+    """Each lane's (V,) frontier and visited masks at ``level`` of its own
+    traversal, rebuilt from its rows as :func:`pull_input` rebuilds root
+    0's: (L, V) planes on the CPU."""
+    to = torch.from_numpy(cols["to"])
+    frontier, visited = [], []
+    for r, root in zip(results, roots):
+        count = int(r.count)
+        pos = r.positions[:count].cpu().long()
+        vd = torch.full((num_vertices,), -1, dtype=torch.int32)
+        vd[root] = 0
+        vd[to[pos].long()] = r.row_depths[:count].cpu() + 1
+        frontier.append(vd == level)
+        visited.append((vd >= 0) & (vd <= level))
+    return torch.stack(frontier), torch.stack(visited)
+
+
+def pull_lane_cases_on_card() -> dict:
+    """Each :func:`pull_lanes_case` (a pull case stacked as four lanes:
+    itself, an empty frontier, the frontier moved on by one, every other
+    vertex open) on the card: one call bit-equal to the plain version on
+    every lane.  Returns each case's next-frontier sizes and the call's
+    ms."""
+    cases = {}
+    flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device=DEVICE)
+    for case in PULL_CASES:
+        src, dst, frontier, visited = (torch.from_numpy(a.copy()).to(DEVICE)
+                                       for a in pull_lanes_case(case))
+        nv = frontier.shape[-1]
+        rcsr = build_csr(dst, nv)
+        layout = build_pull_layout(rcsr, src, dst, nv)
+        want = frontier_pull_ref(rcsr, src, dst, frontier, visited)
+
+        def call():
+            return fp_ops.frontier_pull_fused(rcsr, src, dst, frontier,
+                                              visited, layout=layout)
+        got = call()
+        torch.cuda.synchronize()
+        require(torch.equal(got, want),
+                f"frontier_pull lane case {case}: differs")
+        cases[case] = {"next": got.sum(-1).tolist(),
+                       "ms": time_ms(call, flush)}
+    return cases
+
+
+def frontier_pull_lane_phase(ds, frontier, visited, level, flush):
+    """The lane axis at ``diropt`` root 0's first pull level: the
+    BATCH_ROOTS lanes' (V,) planes at that level in one call over the one
+    outbound layout, bit-equal to both plain versions and to each lane's
+    one-lane call, then timed beside the plain version and the one-lane
+    calls one after another.  ``bound_ms`` sums :func:`walk_bytes` over
+    the lanes.  Returns the numbers, the stacked cases and the call."""
+    ctx = ds.context("outbound")
+    rcsr, src, dst, layout = ctx.rcsr, ctx.join_src, ctx.join_dst, \
+        ctx.pull_layout
+    f, v = frontier.to(DEVICE), visited.to(DEVICE)
+    lanes = f.shape[0]
+
+    def call():
+        return fp_ops.frontier_pull_fused(rcsr, src, dst, f, v,
+                                          layout=layout)
+
+    rows = [(f[i].contiguous(), v[i].contiguous()) for i in range(lanes)]
+
+    def per_lane_calls():
+        for fi, vi in rows:
+            fp_ops.frontier_pull_fused(rcsr, src, dst, fi, vi, layout=layout)
+
+    want = frontier_pull_ref(rcsr, src, dst, f, v)
+    got = call()
+    torch.cuda.synchronize()
+    require(torch.equal(got, want) and torch.equal(
+        frontier_pull_layout_ref(layout, f, v), want),
+        "frontier_pull lanes: differs from the plain versions")
+    for i, (fi, vi) in enumerate(rows):
+        require(torch.equal(got[i], fp_ops.frontier_pull_fused(
+            rcsr, src, dst, fi, vi, layout=layout)),
+            f"frontier_pull lanes: lane {i} differs from its own call")
+    nbytes = sum(walk_bytes(layout, fi, vi) for fi, vi in rows)
+    entry = {
+        "lanes": lanes, "max_abs_err": max_abs_err(got, want),
+        "ms": time_ms(call, flush),
+        "per_lane_calls_ms": time_ms(per_lane_calls, flush),
+        "plain_ms": time_ms(lambda: frontier_pull_ref(rcsr, src, dst, f, v),
+                            flush),
+        "bound_ms": bound_ms(nbytes), "bound_by": "bytes",
+        "library_ms": None,
+        "shape": f"L={lanes} level={level} V={f.shape[1]} "
+                 f"frontier={f.sum(-1).tolist()} "
+                 f"unvisited={(~v).sum(-1).tolist()} "
+                 f"next={got.sum(-1).tolist()} "
+                 f"tiles={layout.tile_vtx.shape[0]}",
+    }
+    return entry, pull_lane_cases_on_card(), call
 
 
 def spmm_case(x, src, dst, w, num_out: int, check: str, flush):
@@ -1184,7 +1438,7 @@ def bag_profile(calls: dict, flush) -> dict:
     own mean device time at each case of ``calls``."""
     out = {}
     for case, fn in calls.items():
-        launches, by_key = device_profile(fn, flush)
+        launches, by_key = device_profile(fn, flush, 1)
         require(launches == 1, f"embedding_bag ({case}): {launches} device "
                 "launches in one call, want 1")
         out[case] = {"device_launches_per_call": launches,
@@ -1288,18 +1542,11 @@ def check_recsys(reqs, got, want, positions, want_positions) -> dict:
 def profile_call(label: str, fn, warm_ms: float) -> dict:
     """Where one warm request's time goes: device time per kernel from
     ``torch.profiler``, and the device's idle share against the request's
-    unprofiled warm latency ``warm_ms``."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
+    unprofiled warm latency ``warm_ms``.  A session that lost every
+    device event is taken again (:func:`profiled`)."""
     # device-side events only (kernels, copies, fills): the host ops that
     # launched them carry the same time again
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA]
+    kernels = profiled(fn, bool)
     device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     top = sorted(kernels, key=lambda e: e.self_device_time_total,
                  reverse=True)[:8]
@@ -1348,6 +1595,83 @@ def check_path(label, requests, got, expected, launches, want_launches,
 
 
 # ---------------------------------------------------------------------------
+# batched roots (run_query_batch)
+# ---------------------------------------------------------------------------
+
+class Batch(NamedTuple):
+    engine: str
+    direction: str
+    roots: tuple
+
+    def __str__(self) -> str:
+        return f"{self.engine} {self.direction} x{len(self.roots)}"
+
+
+def make_batches(cols: dict, num_vertices: int) -> list[Batch]:
+    """Each engine outbound over the BATCH_ROOTS roots of
+    :func:`batch_roots`; PRecursive inbound and both ways over the same
+    roots with the deepest vertex in place of the last random root; and
+    PRecursive outbound over a serving bucket of BUCKET_ROOTS (the eight
+    and seeded random roots)."""
+    eight = tuple(batch_roots(cols, num_vertices))
+    back = eight[:-1] + (num_vertices - 1,)
+    more = np.random.default_rng(ROOT_SEED + 1).integers(
+        0, num_vertices, BUCKET_ROOTS - len(eight)).tolist()
+    return ([Batch(engine, "outbound", eight) for engine in ENGINE_NAMES]
+            + [Batch("precursive", "inbound", back),
+               Batch("precursive", "both", back),
+               Batch("precursive", "outbound", eight + tuple(more))])
+
+
+def run_batch(ds, b: Batch, levels: list, card: str) -> dict:
+    """One ``run_query_batch`` call with the counters zeroed just before
+    and read just after: every lane bit-equal to the card's run of its
+    root alone, root 0's lane equal to the BFS oracle, and each per-level
+    kernel called once on each level where some lane calls it (a lane's
+    levels from :func:`launch_levels` of its own run), so a level is one C
+    call for all lanes.  Returns the ``batch:`` line's numbers."""
+    q = query(b.engine, b.direction)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    got = run_query_batch(q, ds, list(b.roots))
+    launches = read_launches()
+    peak_mib = (torch.cuda.max_memory_allocated() - held) / 2 ** 20
+    lane_levels, one_by_one_ms = [], 0.0
+    for i, root in enumerate(b.roots):
+        one = run_query(q, ds, root)
+        lane = result_lane(got, i)
+        label = f"batch {b} lane {i} root {root}"
+        require_equal(lane, one, label, "the single-root card run")
+        if b.direction == "outbound" and root == 0:
+            check_root0(lane, levels, SPEC, label)
+        lane_levels.append(launch_levels(
+            Request(b.engine, b.direction, root), one, SPEC.num_vertices))
+        one_by_one_ms += warm_latency_ms(lambda root=root: run_query(
+            q, ds, root))
+    depths = got.depth.tolist()
+    deepest = [i for i, d in enumerate(depths) if d == max(depths)]
+    want = {k: len(set().union(*(lv[k] for lv in lane_levels)))
+            for k in TRAVERSAL_KERNELS}
+    require(launches == {**dict.fromkeys(KERNEL_OPS, 0), **want,
+                         "late_gather": 1},
+            f"batch {b}: launches {launches}, want {want}, one late_gather")
+    warm = warm_latency_ms(lambda: run_query_batch(q, ds, list(b.roots)))
+    return {
+        "call": str(b), "lanes": len(b.roots), "levels": max(depths),
+        "lane_depths": depths, "launches": launches,
+        "deepest_lane_launches": {k: max(len(lane_levels[i][k])
+                                         for i in deepest)
+                                  for k in TRAVERSAL_KERNELS},
+        "summed_lane_launches": {k: sum(len(lv[k]) for lv in lane_levels)
+                                 for k in TRAVERSAL_KERNELS},
+        "warm_ms": warm, "one_by_one_warm_ms": one_by_one_ms,
+        "peak_mib": peak_mib, "count": got.count.tolist(),
+        "overflow": got.overflow.tolist(), "card": card}
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> None:
     if not torch.cuda.is_available():
@@ -1357,7 +1681,8 @@ def main() -> None:
     t_start = time.perf_counter()
 
     # phase 1: the card and the kernels' build
-    print(card_line(), flush=True)
+    card = card_line()
+    print(card, flush=True)
     t0 = time.perf_counter()
     reports = _build.build_all()
     print(f"build: {time.perf_counter() - t0:.3f} s for "
@@ -1452,6 +1777,21 @@ def main() -> None:
     print(f"frontier_pull input: {fp['shape']}")
     print(f"frontier_pull hub input: {fp['hub']['shape']}")
     print("frontier_pull cases: " + json.dumps(fp_cases))
+    # the lane axis of both per-level kernels: the batch's lanes at root
+    # 0's widest expansion level and at diropt root 0's first pull level
+    eight = batch_roots(cols, SPEC.num_vertices)
+    lane_t, lane_v, lane_emitted = lane_targets(expected[:BATCH_ROOTS], cols,
+                                                level, CAPS.frontier)
+    fe_lanes, fe_lane_cases, fe_lane_call = frontier_expand_lane_phase(
+        ds, lane_t, lane_v, CAPS.frontier, lane_emitted, flush)
+    print("frontier_expand lane cases: " + json.dumps(fe_lane_cases))
+    pull_level = pull_input(diropt_root0, cols, SPEC.num_vertices)[2]
+    fp_lanes, fp_lane_cases, fp_lane_call = frontier_pull_lane_phase(
+        ds, *pull_lane_input(expected[:BATCH_ROOTS], eight, cols,
+                             SPEC.num_vertices, pull_level),
+        pull_level, flush)
+    print("frontier_pull lane cases: " + json.dumps(fp_lane_cases))
+    fe["lanes"], fp["lanes"] = fe_lanes, fp_lanes
     bitmap_sum0 = expected_weighted[weighted_requests.index(
         Request("bitmap", "outbound", 0, "aggregate_sum"))]
     sp, sp_cases, sp_calls = spmm_segment_phase(bitmap_sum0, cols,
@@ -1524,6 +1864,17 @@ def main() -> None:
     print(f"bags path: embedding_bag over {bag_idx.shape[0]} positions "
           f"into {BULK_BATCH} bags equal to phase 2; launches "
           f"{json.dumps(by_path['bags'])}")
+
+    # batched roots: each call's counters zeroed just before it and read
+    # just after, summed into the batch path
+    by_path["batch"] = dict.fromkeys(KERNEL_OPS, 0)
+    batch_lines = {}
+    for b in make_batches(cols, SPEC.num_vertices):
+        line = run_batch(ds, b, levels, card)
+        batch_lines[str(b)] = line
+        for name, n in line["launches"].items():
+            by_path["batch"][name] += n
+        print("batch: " + json.dumps(line))
     for name, entry in kernels.items():
         entry["launches"] = sum(n[name] for n in by_path.values())
         entry["launches_by_path"] = {p: n[name] for p, n in by_path.items()}
@@ -1621,6 +1972,15 @@ def main() -> None:
     print(f"request {label}: warm latency {ms:.3f} ms (median of 3, host "
           f"clock, the wrapper's sort included)")
     print("profile: " + json.dumps(profile_call(label, bags_call, ms)))
+    for engine in ("precursive", "diropt"):
+        b = Batch(engine, "outbound", tuple(eight))
+
+        def batch_call(b=b):
+            return run_query_batch(query(b.engine, b.direction), ds,
+                                   list(b.roots))
+        print("profile: " + json.dumps({**profile_call(
+            f"batch {b}", batch_call, batch_lines[str(b)]["warm_ms"]),
+            "card": card}))
 
     fe.update(expand_profile(fe_call, flush))
     sp["profile"] = spmm_profile(sp_calls, flush)
@@ -1636,6 +1996,13 @@ def main() -> None:
     fp["device_launches_per_call"] = \
         fp_profile["main"]["device_launches_per_call"]
     print("frontier_pull profile: " + json.dumps(fp_profile))
+    # the lane axis keeps one lane's device launches: 3, and 1 for the
+    # pull over the outbound layout, which has no hub tile
+    fe_lanes.update(expand_profile(fe_lane_call, flush))
+    fp_lanes.update(pull_profile({"lanes": fp_lane_call}, flush)["lanes"])
+    print("frontier_expand lanes: " + json.dumps({**fe_lanes,
+                                                  "card": card}))
+    print("frontier_pull lanes: " + json.dumps({**fp_lanes, "card": card}))
     print(f"script: {time.perf_counter() - t_start:.3f} s from the build "
           f"on (host clock)")
     print(json.dumps({"kernels": list(kernels.values())}))

@@ -17,7 +17,8 @@ from typing import NamedTuple
 import torch
 
 __all__ = ["CSRIndex", "build_csr", "expand_frontier", "csr_degrees",
-           "merged_indptr", "bidir_degrees", "expand_frontier_both"]
+           "merged_indptr", "bidir_degrees", "expand_frontier_both",
+           "lane_cumsum", "lane_take"]
 
 
 class CSRIndex(NamedTuple):
@@ -70,26 +71,57 @@ def expand_frontier(csr: CSRIndex, targets: torch.Tensor, valid: torch.Tensor,
     kernel.
 
     Returns (edge_positions (capacity,), min(total, capacity),
-    total > capacity), the last two as 0-d tensors."""
-    f = targets.shape[0]
+    total > capacity), the last two as 0-d tensors.  ``(L, F)`` targets
+    and flags (a batch of roots) expand each lane on its own: (L,
+    capacity) positions and (L,) counts and flags."""
+    f = targets.shape[-1]
     e = csr.num_edges
     deg = csr_degrees(csr, targets, valid)                        # (F,)
-    ends = torch.cumsum(deg, 0, dtype=torch.int32)                # inclusive
+    ends = lane_cumsum(deg)                                       # inclusive
     starts = ends - deg
-    total = ends[-1] if f > 0 else torch.zeros((), dtype=torch.int32,
-                                                device=targets.device)
+    total = ends[..., -1] if f > 0 else torch.zeros(
+        targets.shape[:-1], dtype=torch.int32, device=targets.device)
     j = torch.arange(capacity, dtype=torch.int32, device=targets.device)
     if f == 0 or e == 0:
-        return torch.full_like(j, e), total.clamp(max=capacity), \
-            total > capacity
-    srcslot = torch.searchsorted(ends, j, right=True, out_int32=True)
-    srcslot = srcslot.clamp(max=f - 1)
-    within = j - starts[srcslot]
-    v = targets[srcslot].clamp(0, csr.num_vertices - 1)
+        return torch.full(targets.shape[:-1] + (capacity,), e,
+                          dtype=torch.int32, device=targets.device), \
+            total.clamp(max=capacity), total > capacity
+    srcslot = _producing_slots(ends, j)
+    within = j - lane_take(starts, srcslot)
+    v = lane_take(targets, srcslot).clamp(0, csr.num_vertices - 1)
     epos = csr.perm[(csr.indptr[v] + within).clamp(0, e - 1)]
-    live = j < total.clamp(max=capacity)
+    live = j < total.clamp(max=capacity)[..., None]
     epos = torch.where(live, epos, e)                             # sentinel pad
     return epos, total.clamp(max=capacity), total > capacity
+
+
+def lane_cumsum(x: torch.Tensor) -> torch.Tensor:
+    """Inclusive int32 cumsum along the last axis.  With a lane axis it is
+    one scan of the flattened lanes (in int64) less each lane's prefix: on
+    the card a scan along a long last axis runs one row a block, about
+    1.6 ms for 8 rows of 2^20 where the flat scan takes a few
+    microseconds."""
+    if x.dim() == 1:
+        return torch.cumsum(x, 0, dtype=torch.int32)
+    flat = torch.cumsum(x.reshape(-1), 0).view(x.shape)
+    before = flat[..., -1:] - x.sum(-1, dtype=torch.int64, keepdim=True)
+    return (flat - before).to(torch.int32)
+
+
+def lane_take(arr: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``arr[idx]``, and with a lane axis each lane's row of ``arr`` at its
+    own row of ``idx``."""
+    return arr[idx] if arr.dim() == 1 else arr.gather(-1, idx.long())
+
+
+def _producing_slots(ends: torch.Tensor, j: torch.Tensor) -> torch.Tensor:
+    """For each output slot ``j`` the frontier slot whose range holds it,
+    ``#{ends <= j}`` clamped to the last slot (per lane with a lane
+    axis)."""
+    if ends.dim() > 1:
+        j = j.expand(ends.shape[:-1] + j.shape).contiguous()
+    srcslot = torch.searchsorted(ends, j, right=True, out_int32=True)
+    return srcslot.clamp(max=ends.shape[-1] - 1)
 
 
 # ---------------------------------------------------------------------------
@@ -123,27 +155,28 @@ def expand_frontier_both(out_csr: CSRIndex, in_csr: CSRIndex,
     """One BFS level over the fused bidirectional view: each target vertex
     emits its out-edge positions (forward, ``p``) followed by its in-edge
     positions (backward, ``E + p``).  Same contract as
-    :func:`expand_frontier`; the join-space sentinel is ``2E``."""
-    f = targets.shape[0]
+    :func:`expand_frontier`, lane axis included; the join-space sentinel
+    is ``2E``."""
+    f = targets.shape[-1]
     e = out_csr.num_edges
     deg = bidir_degrees(both_indptr, targets, valid)              # (F,)
-    ends = torch.cumsum(deg, 0, dtype=torch.int32)
+    ends = lane_cumsum(deg)
     starts = ends - deg
-    total = ends[-1] if f > 0 else torch.zeros((), dtype=torch.int32,
-                                                device=targets.device)
+    total = ends[..., -1] if f > 0 else torch.zeros(
+        targets.shape[:-1], dtype=torch.int32, device=targets.device)
     j = torch.arange(capacity, dtype=torch.int32, device=targets.device)
     if f == 0 or e == 0:
-        return torch.full_like(j, 2 * e), total.clamp(max=capacity), \
-            total > capacity
-    srcslot = torch.searchsorted(ends, j, right=True, out_int32=True)
-    srcslot = srcslot.clamp(max=f - 1)
-    within = j - starts[srcslot]
-    v = targets[srcslot].clamp(0, out_csr.num_vertices - 1)
+        return torch.full(targets.shape[:-1] + (capacity,), 2 * e,
+                          dtype=torch.int32, device=targets.device), \
+            total.clamp(max=capacity), total > capacity
+    srcslot = _producing_slots(ends, j)
+    within = j - lane_take(starts, srcslot)
+    v = lane_take(targets, srcslot).clamp(0, out_csr.num_vertices - 1)
     out_deg = out_csr.indptr[v + 1] - out_csr.indptr[v]
     fwd = within < out_deg
     out_idx = (out_csr.indptr[v] + within).clamp(0, e - 1)
     in_idx = (in_csr.indptr[v] + within - out_deg).clamp(0, e - 1)
     epos = torch.where(fwd, out_csr.perm[out_idx], e + in_csr.perm[in_idx])
-    live = j < total.clamp(max=capacity)
+    live = j < total.clamp(max=capacity)[..., None]
     epos = torch.where(live, epos, 2 * e)                         # sentinel
     return epos, total.clamp(max=capacity), total > capacity

@@ -6,10 +6,12 @@ exist, which engine executes it and the traversal ``direction``.  A
 A query's ``workload`` is ``reach`` (boolean BFS) or a value semiring of
 :mod:`repro_torch.core.semiring`, which runs on ``precursive`` and
 ``bitmap`` with the edge weights of ``weight_col``.  :func:`run_query`
-answers one root through the single fixed-point driver; on a CUDA dataset
-it plugs the hand-written kernels in: ``frontier_expand`` into every
-positional IndexJoin, ``frontier_pull`` into every pull step and
-``spmm_segment`` into the dense (sum, ×) combine, as the reference's
+answers one root through the single fixed-point driver, and
+:func:`run_query_batch` many roots of a reach query at once (a leading
+lane axis on every result field, :func:`result_lane` slices one out); on
+a CUDA dataset both plug the hand-written kernels in: ``frontier_expand``
+into every positional IndexJoin, ``frontier_pull`` into every pull step
+and ``spmm_segment`` into the dense (sum, ×) combine, as the reference's
 planner does for its kernel candidates.
 
 Entry points run on the card unless the caller asks for the CPU:
@@ -30,7 +32,7 @@ from .bitmap import (bitmap_plan, diropt_hybrid_plan, diropt_plan,
                      hybrid_plan, weighted_bitmap_plan)
 from .csr import CSRIndex, build_csr, merged_indptr
 from .operators import (DIRECTIONS, BFSResult, Context, EngineCaps, Pipeline,
-                        execute)
+                        execute, execute_batch)
 from .recursive import precursive_plan, weighted_precursive_plan
 from .semiring import WORKLOADS
 from .table import ColumnTable, payload_names
@@ -38,7 +40,7 @@ from .table import ColumnTable, payload_names
 __all__ = ["RecursiveQuery", "Dataset", "EngineCaps", "BFSResult",
            "ENGINE_NAMES", "DIROPT_ENGINE_NAMES", "PUSH_COUNTERPART",
            "WEIGHTED_ENGINE_NAMES", "build_plan", "query_context",
-           "run_query", "resolve_device"]
+           "run_query", "run_query_batch", "result_lane", "resolve_device"]
 
 Direction = Literal["outbound", "inbound", "both"]
 
@@ -62,6 +64,8 @@ _LATER_SLICES = {
                     "the paper's other engines"),
     "multiquery": "MS-BFS",
 }
+# the batched weighted engines come with this ROADMAP slice
+_WEIGHTED_BATCH_SLICE = "batched roots, weighted"
 
 
 def resolve_device(device=None) -> torch.device:
@@ -255,6 +259,20 @@ def query_context(q: RecursiveQuery, ds: Dataset) -> Context:
     return ds.context(q.direction, weight_col=wc)
 
 
+def _device_plan(q: RecursiveQuery, ds: Dataset) -> Pipeline:
+    """The query's pipeline for the dataset's device: the plain one on the
+    CPU; on the card the one with the kernels plugged in, after the
+    direction's pull layout is built (once per dataset) for the pulling
+    engines."""
+    if ds.device.type != "cuda":
+        return build_plan(q)
+    if q.engine in DIROPT_ENGINE_NAMES:
+        ds.ensure_pull_layout(q.direction)
+    return build_plan(q, expand_fn=frontier_expand_fused,
+                      pull_fn=frontier_pull_fused,
+                      spmm_fn=spmm_segment_sorted)
+
+
 def run_query(q: RecursiveQuery, ds: Dataset, root: int) -> BFSResult:
     """Execute one query through the fixed-point driver.  On a CUDA dataset
     the hand-written kernels run in place of their plain versions:
@@ -264,12 +282,33 @@ def run_query(q: RecursiveQuery, ds: Dataset, root: int) -> BFSResult:
     dense (sum, ×) combine.  The result is bit-identical to the plain run,
     except that a (sum, ×) or (mul, ×) vertex value that combines several
     arrivals may differ in its last bits (summation order)."""
-    if ds.device.type != "cuda":
-        return execute(build_plan(q), query_context(q, ds), root,
-                       ds.num_vertices)
-    if q.engine in DIROPT_ENGINE_NAMES:
-        ds.ensure_pull_layout(q.direction)
-    plan = build_plan(q, expand_fn=frontier_expand_fused,
-                      pull_fn=frontier_pull_fused,
-                      spmm_fn=spmm_segment_sorted)
-    return execute(plan, query_context(q, ds), root, ds.num_vertices)
+    return execute(_device_plan(q, ds), query_context(q, ds), root,
+                   ds.num_vertices)
+
+
+def run_query_batch(q: RecursiveQuery, ds: Dataset, roots) -> BFSResult:
+    """Execute one reach query for many roots at once: every field of the
+    returned ``BFSResult`` gains a leading ``len(roots)`` lane axis, and
+    lane i is bit-identical to ``run_query(q, ds, roots[i])``.  One
+    fixed-point loop serves every lane, with one host read per level for
+    all of them; on a CUDA dataset the same kernels as in
+    :func:`run_query` run, one call per level for every lane that takes
+    them.  A weighted query raises NotImplementedError (after the checks
+    that :func:`run_query` makes)."""
+    if q.workload != "reach":
+        build_plan(q)
+        raise NotImplementedError(
+            f"batched roots for the weighted workload {q.workload!r} are "
+            f"not ported yet: they come with the ROADMAP slice "
+            f"'{_WEIGHTED_BATCH_SLICE}'; run one run_query per root")
+    roots = torch.as_tensor(roots).reshape(-1).tolist()
+    return execute_batch(_device_plan(q, ds), query_context(q, ds), roots,
+                         ds.num_vertices)
+
+
+def result_lane(r: BFSResult, lane: int) -> BFSResult:
+    """Slice one lane out of a batched BFSResult."""
+    return BFSResult(*(
+        None if f is None else
+        {k: v[lane] for k, v in f.items()} if isinstance(f, dict) else
+        f[lane] for f in r))

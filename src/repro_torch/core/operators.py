@@ -50,6 +50,15 @@ device; here they are Python branches on host values.  The fixed-point
 loop copies the level's scalars to the host once per level, in one
 transfer (:class:`HostCounts`), and the operators branch on those.
 
+Batched roots (:func:`fixed_point_batch`, the reference's vmap over one
+``while_loop``): every state field gains a leading lane axis, and the reach
+operators run on it unchanged, each lane along the last axis.  All lanes
+still in the loop share the level's depth; a lane whose frontier dies is
+retired from the loop state, and one finisher runs over every lane at the
+end.  Where lanes take different branches (``HybridStep``'s sparse/dense,
+``DirectionSwitch``'s push/pull) each side runs on its own group of lanes
+(:func:`_lanes_split`).
+
 Every gather clamps its indices and every dropping scatter routes dropped
 entries to a spare slot: torch on CUDA asserts where JAX clamps or drops.
 Public fields stay int32 (``level_dirs`` int8), as in the reference.
@@ -65,7 +74,7 @@ import torch
 from ..kernels.frontier_pull.layout import PullLayout
 from ..kernels.frontier_pull.ref import frontier_pull_ref
 from ..kernels.spmm_segment.ops import segments
-from .csr import CSRIndex, expand_frontier, expand_frontier_both
+from .csr import CSRIndex, expand_frontier, expand_frontier_both, lane_take
 from .positions import PosBlock, append_block, compact_mask
 from .semiring import (elem_combine, get_semiring, or_combine, propagate,
                        scatter_combine)
@@ -78,7 +87,8 @@ __all__ = [
     "DirectionSwitch", "HybridStep", "HybridPullStep", "WeightedExpand",
     "WeightedDenseStep", "AppendUnionAll",
     "LateMaterialize", "CompactEmitted", "DeferredEmit", "Pipeline",
-    "fixed_point", "execute", "dedup_targets", "bitmap_level",
+    "fixed_point", "execute", "fixed_point_batch", "execute_batch",
+    "dedup_targets", "bitmap_level",
 ]
 
 DIRECTIONS = ("outbound", "inbound", "both")
@@ -98,6 +108,9 @@ class EngineCaps(NamedTuple):
 
 
 class BFSResult(NamedTuple):
+    """One root's result; a batch of roots adds a leading lane axis to
+    every field."""
+
     values: Dict[str, torch.Tensor]   # (result_cap, ...) materialized outputs
     positions: torch.Tensor           # (result_cap,) int32 edge positions
     count: torch.Tensor               # () int32 live rows
@@ -139,16 +152,21 @@ class HostCounts(NamedTuple):
     """The level's scalars on the host, copied by the fixed-point loop once
     per level in one transfer: the depth of the level, its live frontier
     entries and (switch pipelines only) the vertices discovered before
-    it."""
+    it.  In a batch ``frontier`` and ``visited`` hold one int per lane
+    still in the loop, which all share ``depth``."""
 
     depth: int = 0
-    frontier: int = 0
-    visited: int = 0
+    frontier: int | list[int] = 0
+    visited: int | list[int] = 0
 
 
 class TraversalState(NamedTuple):
     """The state the operators share across levels.  One frontier
-    representation is active per pipeline; the others are zero-size."""
+    representation is active per pipeline; the others are zero-size.  In
+    a batch every tensor field but ``depth`` has a leading lane axis (a
+    zero-size field is (L, 0)); ``depth`` stays one 0-d tensor, the level
+    shared by the lanes still in the loop, until the finisher gets each
+    lane's own."""
 
     frontier_pos: torch.Tensor     # (F,) int32 join-space edge positions
     frontier_count: torch.Tensor   # () int32 live frontier entries
@@ -190,17 +208,20 @@ def dedup_targets(targets: torch.Tensor, valid: torch.Tensor,
                   ) -> tuple[torch.Tensor, torch.Tensor]:
     """BFS vertex dedup: drop already-visited targets and, within the level,
     keep only the first occurrence of each vertex (scatter-argmin ticket).
+    With a lane axis each lane has its own visited row and tickets: the
+    first slot per vertex per lane.
 
     Returns (keep_mask, new_visited)."""
-    cap = targets.shape[0]
-    nv = visited.shape[0]
+    cap = targets.shape[-1]
+    nv = visited.shape[-1]
     safe = targets.clamp(0, nv - 1)
-    fresh = valid & ~visited[safe]
+    fresh = valid & ~lane_take(visited, safe)
     slots = torch.arange(cap, dtype=torch.int32, device=targets.device)
-    ticket = torch.full((nv,), cap, dtype=torch.int32, device=targets.device)
-    ticket.scatter_reduce_(0, safe.long(), torch.where(fresh, slots, cap),
+    ticket = torch.full(visited.shape, cap, dtype=torch.int32,
+                        device=targets.device)
+    ticket.scatter_reduce_(-1, safe.long(), torch.where(fresh, slots, cap),
                            "amin")
-    keep = fresh & (ticket[safe] == slots)
+    keep = fresh & (lane_take(ticket, safe) == slots)
     return keep, or_combine(visited, safe, keep)
 
 
@@ -246,22 +267,24 @@ def _join_src_at(ctx: Context, pos: torch.Tensor) -> torch.Tensor:
     return torch.where(fwd, ctx.join_src[p], ctx.join_dst[p])
 
 
-def _seed_mask(ctx: Context, root: int) -> torch.Tensor:
-    """(EJ,) mask of join edges whose source is the root (the seed filter).
-    Fused view: forward matches on ``from``, backward on ``to``."""
+def _seed_mask(ctx: Context, root) -> torch.Tensor:
+    """(EJ,) mask of join edges whose source is the root (the seed filter),
+    or (L, EJ) for an (L, 1) tensor of roots.  Fused view: forward matches
+    on ``from``, backward on ``to``."""
     if not ctx.bidir:
         return ctx.join_src == root
-    return torch.cat([ctx.join_src == root, ctx.join_dst == root])
+    return torch.cat([ctx.join_src == root, ctx.join_dst == root], -1)
 
 
 def _hit_mask(ctx: Context, frontier_v: torch.Tensor) -> torch.Tensor:
     """(EJ,) mask of join edges whose SOURCE vertex is in ``frontier_v``:
-    the rows one CTE level emits (push-side emission test)."""
-    nv = frontier_v.shape[0]
+    the rows one CTE level emits (push-side emission test); (L, EJ) for
+    (L, V) lanes."""
+    nv = frontier_v.shape[-1]
     if not ctx.bidir:
-        return frontier_v[ctx.join_src.clamp(0, nv - 1)]
-    return torch.cat([frontier_v[ctx.join_src.clamp(0, nv - 1)],
-                      frontier_v[ctx.join_dst.clamp(0, nv - 1)]])
+        return frontier_v[..., ctx.join_src.clamp(0, nv - 1)]
+    return torch.cat([frontier_v[..., ctx.join_src.clamp(0, nv - 1)],
+                      frontier_v[..., ctx.join_dst.clamp(0, nv - 1)]], -1)
 
 
 def _edge_weights(ctx: Context) -> torch.Tensor:
@@ -287,12 +310,12 @@ def _set_drop(arr: torch.Tensor, idx: torch.Tensor, vals) -> torch.Tensor:
     """``arr.at[idx].set(vals, mode="drop")`` for ``idx`` in [0, len]:
     the callers route every dropped entry to ``len``, a spare slot that is
     sliced off.  ``vals`` broadcasts to ``idx``; ``arr`` is not
-    modified."""
-    n = arr.shape[0]
-    ext = torch.cat([arr, arr.new_zeros((1,))])
+    modified.  With a lane axis each lane sets its own row."""
+    n = arr.shape[-1]
+    ext = torch.cat([arr, arr.new_zeros(arr.shape[:-1] + (1,))], -1)
     vals = torch.as_tensor(vals, dtype=arr.dtype, device=arr.device)
-    ext.scatter_(0, idx.long(), vals.expand(idx.shape))
-    return ext[:n]
+    ext.scatter_(-1, idx.long(), vals.expand(idx.shape))
+    return ext[..., :n]
 
 
 def bitmap_level(from_col: torch.Tensor, to_col: torch.Tensor,
@@ -300,9 +323,9 @@ def bitmap_level(from_col: torch.Tensor, to_col: torch.Tensor,
                  ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One dense push step.  Returns (edge_hit_mask, next_frontier,
     visited); edge_hit_mask marks the edges whose source is in the frontier
-    (the rows the CTE emits this level)."""
-    nv = frontier_v.shape[0]
-    hit = frontier_v[from_col.clamp(0, nv - 1)]
+    (the rows the CTE emits this level).  (L, V) bitmaps step each lane."""
+    nv = frontier_v.shape[-1]
+    hit = frontier_v[..., from_col.clamp(0, nv - 1)]
     nxt = or_combine(torch.zeros_like(frontier_v), to_col.clamp(0, nv - 1),
                      hit)
     nxt = nxt & ~visited
@@ -316,15 +339,15 @@ def _dense_push(ctx: Context, frontier_v: torch.Tensor,
     (edge_hit_mask (EJ,), next_frontier, visited)."""
     if not ctx.bidir:
         return bitmap_level(ctx.join_src, ctx.join_dst, frontier_v, visited)
-    nv = frontier_v.shape[0]
+    nv = frontier_v.shape[-1]
     src = ctx.join_src.clamp(0, nv - 1)
     dst = ctx.join_dst.clamp(0, nv - 1)
-    hit_f = frontier_v[src]
-    hit_b = frontier_v[dst]
+    hit_f = frontier_v[..., src]
+    hit_b = frontier_v[..., dst]
     nxt = or_combine(or_combine(torch.zeros_like(frontier_v), dst, hit_f),
                      src, hit_b)
     nxt = nxt & ~visited
-    return torch.cat([hit_f, hit_b]), nxt, visited | nxt
+    return torch.cat([hit_f, hit_b], -1), nxt, visited | nxt
 
 
 def _dense_pull(ctx: Context, frontier_v: torch.Tensor,
@@ -334,16 +357,18 @@ def _dense_pull(ctx: Context, frontier_v: torch.Tensor,
     frontier bitmap.  Over the reverse CSR, ``pull_fn`` (the
     ``frontier_pull`` kernel wrapper, handed the context's pull layout) or,
     without one, its plain version computes it.  The fused view takes no
-    kernel, as in the reference."""
-    nv = frontier_v.shape[0]
+    kernel, as in the reference.  (L, V) bitmaps pull each lane, the kernel
+    in one call for all of them."""
+    nv = frontier_v.shape[-1]
     cand = ~visited
     empty = torch.zeros_like(frontier_v)
     if ctx.bidir:
         # fused view: both orientations contribute, natural edge order
         src = ctx.join_src.clamp(0, nv - 1)
         dst = ctx.join_dst.clamp(0, nv - 1)
-        nxt = or_combine(or_combine(empty, dst, cand[dst] & frontier_v[src]),
-                         src, cand[src] & frontier_v[dst])
+        nxt = or_combine(
+            or_combine(empty, dst, cand[..., dst] & frontier_v[..., src]),
+            src, cand[..., src] & frontier_v[..., dst])
         return nxt & cand
     if pull_fn is not None and ctx.rcsr is None:
         raise ValueError(
@@ -359,7 +384,7 @@ def _dense_pull(ctx: Context, frontier_v: torch.Tensor,
     # bottom-up test in natural edge order, with an identical result
     src = ctx.join_src.clamp(0, nv - 1)
     dst = ctx.join_dst.clamp(0, nv - 1)
-    nxt = or_combine(empty, dst, cand[dst] & frontier_v[src])
+    nxt = or_combine(empty, dst, cand[..., dst] & frontier_v[..., src])
     return nxt & cand
 
 
@@ -380,12 +405,83 @@ def _tag_depths(result_depth: torch.Tensor, count: torch.Tensor,
                 block_cap: int, block_count: torch.Tensor, tag: torch.Tensor
                 ) -> torch.Tensor:
     """Record the BFS level of every row the current append makes live."""
-    cap_r = result_depth.shape[0]
+    cap_r = result_depth.shape[-1]
     idx = torch.arange(block_cap, dtype=torch.int32,
                        device=result_depth.device)
-    slots = count + idx
-    live = (idx < block_count) & (slots < cap_r)
+    slots = count[..., None] + idx
+    live = (idx < block_count[..., None]) & (slots < cap_r)
     return _set_drop(result_depth, torch.where(live, slots, cap_r), tag)
+
+
+def _root_slot(root, n: int, device):
+    """Where a root's entry sits in an (n,) vertex plane, clipped into
+    [0, n) as the reference clips it; for a list of roots, the (lane,
+    vertex) index of each lane's entry in an (L, n) plane."""
+    if isinstance(root, int):
+        return min(max(root, 0), n - 1)
+    cols = torch.tensor([min(max(r, 0), n - 1) for r in root],
+                        dtype=torch.int64, device=device)
+    return torch.arange(len(root), device=device), cols
+
+
+def _per_lane(fn, *counts):
+    """``fn`` of one root's host counts, or the list of ``fn`` over the
+    lanes of a batch's."""
+    if isinstance(counts[0], list):
+        return [fn(*c) for c in zip(*counts)]
+    return fn(*counts)
+
+
+def _select_lanes(state: TraversalState, rows: list[int]) -> TraversalState:
+    """The batch state of the lanes ``rows`` (in that order): every field
+    with a lane axis copied by one ``index_select``, the host counts cut to
+    match.  The shared ``depth`` is kept."""
+    idx = torch.tensor(rows, dtype=torch.int64, device=state.depth.device)
+    fields = {k: v.index_select(0, idx) for k, v in state._asdict().items()
+              if isinstance(v, torch.Tensor) and v.dim() > 0}
+    host = state.host
+    if isinstance(host.frontier, list):
+        host = host._replace(
+            frontier=[host.frontier[i] for i in rows],
+            visited=([host.visited[i] for i in rows]
+                     if isinstance(host.visited, list) else host.visited))
+    return state._replace(host=host, **fields)
+
+
+def _merge_lanes(parts: list, depth: torch.Tensor) -> TraversalState:
+    """Put the states of ``parts``, a list of (lane rows, batch state) whose
+    rows together are 0..L-1, back in lane order, with ``depth`` as the
+    result's depth field."""
+    rows = [r for part_rows, _ in parts for r in part_rows]
+    first = parts[0][1]
+    order = torch.empty(len(rows), dtype=torch.int64)
+    order[torch.tensor(rows, dtype=torch.int64)] = torch.arange(len(rows))
+    order = order.to(first.depth.device)
+    fields = {}
+    for k, v in first._asdict().items():
+        if isinstance(v, torch.Tensor) and v.dim() > 0:
+            fields[k] = torch.cat([getattr(st, k) for _, st in parts]
+                                  ).index_select(0, order)
+    return first._replace(depth=depth, **fields)
+
+
+def _lanes_split(state: TraversalState, flags, on_true, on_false
+                 ) -> TraversalState:
+    """A branch on host values: ``on_true(state)`` or ``on_false(state)``
+    for one root (``flags`` a bool).  In a batch (``flags`` one bool per
+    lane) each side runs on its own group of lanes, selected, stepped and
+    put back in lane order; where every lane agrees, on the whole batch."""
+    if isinstance(flags, bool):
+        return on_true(state) if flags else on_false(state)
+    if all(flags):
+        return on_true(state)
+    if not any(flags):
+        return on_false(state)
+    yes = [i for i, f in enumerate(flags) if f]
+    no = [i for i, f in enumerate(flags) if not f]
+    return _merge_lanes([(yes, on_true(_select_lanes(state, yes))),
+                         (no, on_false(_select_lanes(state, no)))],
+                        state.depth)
 
 
 # ---------------------------------------------------------------------------
@@ -453,19 +549,20 @@ class Seed(Operator):
                               vertex_val=vertex_val, frontier_val=fval)
 
     def init(self, ctx, state, root):
+        """``root`` is an int, or a list of ints for a batch (reach
+        only)."""
         if self.semiring != "reach":
             return self._init_weighted(ctx, state, root)
-        if state.vertex_depth.shape[0]:
+        dev = state.depth.device
+        if state.vertex_depth.shape[-1]:
             # deferred emission: the per-vertex depth array IS the visited
             # set and the frontier (no separate bitmaps)
-            nvd = state.vertex_depth.shape[0]
             vd = state.vertex_depth.clone()
-            vd[min(max(root, 0), nvd - 1)] = 0
+            vd[_root_slot(root, vd.shape[-1], dev)] = 0
             one = torch.ones_like(state.visited_count)
             return state._replace(vertex_depth=vd, visited_count=one,
                                   frontier_count=one)
-        nv = state.visited.shape[0]
-        r = min(max(root, 0), nv - 1)
+        r = _root_slot(root, state.visited.shape[-1], dev)
         visited = state.visited.clone()
         visited[r] = True
         if self.kind == "dense":
@@ -475,8 +572,10 @@ class Seed(Operator):
                                   frontier_count=torch.ones_like(
                                       state.frontier_count))
         ej = _num_join(ctx)
-        cap = state.frontier_pos.shape[0]
-        blk = compact_mask(_seed_mask(ctx, root), cap, ej)
+        cap = state.frontier_pos.shape[-1]
+        key = root if isinstance(root, int) else \
+            torch.tensor(root, dtype=torch.int64, device=dev)[:, None]
+        blk = compact_mask(_seed_mask(ctx, key), cap, ej)
         state = state._replace(frontier_pos=blk.positions,
                                frontier_count=blk.count, visited=visited)
         if self.mark_emitted:
@@ -494,9 +593,10 @@ class ReadTargets(Operator):
     ONLY per-level value gather of the positional plan (one column)."""
 
     def step(self, ctx, state):
-        cap = state.targets.shape[0]
+        cap = state.targets.shape[-1]
         valid = torch.arange(cap, dtype=torch.int32,
-                             device=state.targets.device) < state.frontier_count
+                             device=state.targets.device) \
+            < state.frontier_count[..., None]
         t = _join_dst_at(ctx, state.frontier_pos)
         return state._replace(targets=torch.where(valid, t, -1), keep=valid)
 
@@ -522,7 +622,7 @@ class CSRIndexJoin(Operator):
     expand_fn: Optional[Callable] = None
 
     def step(self, ctx, state):
-        cap = state.frontier_pos.shape[0]
+        cap = state.frontier_pos.shape[-1]
         epos, total, ovf = _expand_join(ctx, state.targets, state.keep, cap,
                                         self.expand_fn)
         return state._replace(frontier_pos=epos, frontier_count=total,
@@ -536,7 +636,7 @@ def _record_deferred(state: TraversalState, new: torch.Tensor
     the scalar visited count the switch predicate reads.  Newly discovered
     vertices get depth ``state.depth + 1``; the emitted mask is derived
     once, after the fixed point."""
-    count = new.sum(dtype=torch.int32)
+    count = new.sum(-1, dtype=torch.int32)
     vd = torch.where(new, state.depth + 1, state.vertex_depth)
     return state._replace(vertex_depth=vd, frontier_count=count,
                           visited_count=state.visited_count + count)
@@ -559,14 +659,14 @@ class DenseBitmapStep(Operator):
         """The newly discovered vertices from the per-vertex depth array
         alone (DirectionSwitch exchanges only this (V,) mask)."""
         vd = state.vertex_depth
-        nv = vd.shape[0]
+        nv = vd.shape[-1]
         src = ctx.join_src.clamp(0, nv - 1)
         dst = ctx.join_dst.clamp(0, nv - 1)
         # frontier membership fused into the edge gather (vd[src] == depth)
-        empty = torch.zeros((nv,), dtype=torch.bool, device=vd.device)
-        tgt = or_combine(empty, dst, vd[src] == state.depth)
+        empty = torch.zeros(vd.shape, dtype=torch.bool, device=vd.device)
+        tgt = or_combine(empty, dst, vd[..., src] == state.depth)
         if ctx.bidir:
-            tgt = or_combine(tgt, src, vd[dst] == state.depth)
+            tgt = or_combine(tgt, src, vd[..., dst] == state.depth)
         return tgt & (vd < 0)
 
     def step(self, ctx, state):
@@ -578,7 +678,7 @@ class DenseBitmapStep(Operator):
         return state._replace(
             frontier_bits=nxt, visited=visited, emitted=state.emitted | hit,
             emit_depth=torch.where(new, state.depth, state.emit_depth),
-            frontier_count=nxt.sum(dtype=torch.int32))
+            frontier_count=nxt.sum(-1, dtype=torch.int32))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -611,7 +711,7 @@ class PullStep(Operator):
             frontier_bits=nxt, visited=state.visited | nxt,
             emitted=state.emitted | hit,
             emit_depth=torch.where(new, state.depth, state.emit_depth),
-            frontier_count=nxt.sum(dtype=torch.int32))
+            frontier_count=nxt.sum(-1, dtype=torch.int32))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -626,37 +726,49 @@ class DirectionSwitch(Operator):
     The reference evaluates this in float32 inside a ``lax.cond``; here it
     is evaluated in float32 on the host, from the counts the fixed-point
     loop copied for the level (``state.host``), so it adds no sync.  The
-    decision is recorded in ``level_dirs``."""
+    decision is recorded in ``level_dirs``.  In a batch each lane decides
+    from its own counts, as under the reference's vmap."""
 
     push: Operator
     pull: Operator
     alpha: float = 1.0
     beta: float = 64.0
 
-    def use_pull(self, ctx, state) -> bool:
+    def use_pull(self, ctx, state) -> bool | list[bool]:
         f32 = np.float32
-        nv = state.vertex_depth.shape[0] or state.visited.shape[0]
+        nv = state.vertex_depth.shape[-1] or state.visited.shape[-1]
         avg = f32(float(_num_join(ctx)) / max(float(nv), 1.0))
-        n_f = f32(state.host.frontier)
-        if state.frontier_bits.shape[0] or state.vertex_depth.shape[0]:
-            # dense/deferred frontier: the count is VERTICES, scaled by
-            # the average out-degree to the push side's edge work
-            m_f = n_f * avg
-        else:                       # positional frontier: the edge block
-            m_f = n_f               # IS the push side's work
-        m_u = f32(nv - state.host.visited) * avg
-        return bool((f32(self.alpha) * m_f > m_u)
-                    & (f32(self.beta) * n_f >= f32(nv)))
+        # dense/deferred frontier: the count is VERTICES, scaled by the
+        # average out-degree to the push side's edge work; a positional
+        # frontier's edge block IS the push side's work
+        dense = bool(state.frontier_bits.shape[-1]
+                     or state.vertex_depth.shape[-1])
+
+        def decide(frontier: int, visited: int) -> bool:
+            n_f = f32(frontier)
+            m_f = n_f * avg if dense else n_f
+            m_u = f32(nv - visited) * avg
+            return bool((f32(self.alpha) * m_f > m_u)
+                        & (f32(self.beta) * n_f >= f32(nv)))
+
+        return _per_lane(decide, state.host.frontier, state.host.visited)
 
     def step(self, ctx, state):
-        use_pull = self.use_pull(ctx, state)
-        if state.level_dirs.shape[0]:
-            # written in place: the state's level_dirs belongs to this run
-            idx = min(state.host.depth, state.level_dirs.shape[0] - 1)
-            state.level_dirs[idx] = int(use_pull)
-        # a Python branch runs only the chosen side: for the deferred steps
-        # that is the reference's narrow exchange of one (V,) mask
-        return (self.pull if use_pull else self.push).step(ctx, state)
+        def side(pull: bool):
+            def run(s):
+                if s.level_dirs.shape[-1]:
+                    # written in place: the state's level_dirs belongs to
+                    # this run
+                    idx = min(s.host.depth, s.level_dirs.shape[-1] - 1)
+                    s.level_dirs[..., idx] = int(pull)
+                # a Python branch runs only the chosen side: for the
+                # deferred steps that is the reference's narrow exchange of
+                # one (V,) mask
+                return (self.pull if pull else self.push).step(ctx, s)
+            return run
+
+        return _lanes_split(state, self.use_pull(ctx, state), side(True),
+                            side(False))
 
 
 def _install_edge_frontier(ctx: Context, state: TraversalState,
@@ -668,7 +780,7 @@ def _install_edge_frontier(ctx: Context, state: TraversalState,
     ej = _num_join(ctx)
     valid = nxt.valid_mask()
     idx = torch.where(valid, nxt.positions, ej)
-    new = valid & ~state.emitted[nxt.positions.clamp(0, ej - 1)]
+    new = valid & ~lane_take(state.emitted, nxt.positions.clamp(0, ej - 1))
     return state._replace(
         frontier_pos=nxt.positions, frontier_count=nxt.count,
         visited=visited, emitted=_set_drop(state.emitted, idx, valid),
@@ -682,38 +794,47 @@ def _install_edge_frontier(ctx: Context, state: TraversalState,
 class HybridStep(Operator):
     """Direction-optimizing level: positional IndexJoin while the frontier
     is small, dense push once it covers ``switch_frac`` of the vertices.
-    The branch is taken on the host count of the level's frontier.
-    ``expand_fn`` plugs a kernel into the sparse branch's IndexJoin."""
+    The branch is taken on the host count of the level's frontier, in a
+    batch per lane.  ``expand_fn`` plugs a kernel into the sparse branch's
+    IndexJoin."""
 
     switch_frac: float = 0.05
     expand_fn: Optional[Callable] = None
 
     def step(self, ctx, state):
-        ej = _num_join(ctx)
-        nv = state.visited.shape[0]
-        cap = state.frontier_pos.shape[0]
-        threshold = max(1, int(nv * self.switch_frac))
+        threshold = max(1, int(state.visited.shape[-1] * self.switch_frac))
+        sparse = _per_lane(lambda f: f < threshold, state.host.frontier)
+        return _lanes_split(state, sparse, lambda s: self._sparse(ctx, s),
+                            lambda s: self._dense(ctx, s))
+
+    def _sparse(self, ctx, state):
+        cap = state.frontier_pos.shape[-1]
         frontier = PosBlock(state.frontier_pos, state.frontier_count)
         fvalid = frontier.valid_mask()
-        if state.host.frontier < threshold:
-            targets = torch.where(
-                fvalid, _join_dst_at(ctx, frontier.positions), -1)
-            keep, visited = dedup_targets(targets, fvalid, state.visited)
-            targets = torch.where(keep, targets, -1)
-            epos, total, ovf = _expand_join(ctx, targets, keep, cap,
-                                            self.expand_fn)
-            nxt = PosBlock(epos, total)
-        else:
-            targets = _join_dst_at(ctx, frontier.positions)
-            # boolean OR (scatter-max): padded slots (clamped onto a real
-            # vertex) must never UNSET a vertex another slot reached
-            tgt_v = or_combine(torch.zeros_like(state.visited),
-                               targets.clamp(0, nv - 1), fvalid)
-            tgt_v = tgt_v & ~state.visited
-            visited = state.visited | tgt_v
-            hit = _hit_mask(ctx, tgt_v)
-            nxt = compact_mask(hit, cap, ej)
-            ovf = hit.sum(dtype=torch.int32) > cap
+        targets = torch.where(
+            fvalid, _join_dst_at(ctx, frontier.positions), -1)
+        keep, visited = dedup_targets(targets, fvalid, state.visited)
+        targets = torch.where(keep, targets, -1)
+        epos, total, ovf = _expand_join(ctx, targets, keep, cap,
+                                        self.expand_fn)
+        return _install_edge_frontier(ctx, state, PosBlock(epos, total),
+                                      visited, ovf)
+
+    def _dense(self, ctx, state):
+        nv = state.visited.shape[-1]
+        cap = state.frontier_pos.shape[-1]
+        frontier = PosBlock(state.frontier_pos, state.frontier_count)
+        fvalid = frontier.valid_mask()
+        targets = _join_dst_at(ctx, frontier.positions)
+        # boolean OR (scatter-max): padded slots (clamped onto a real
+        # vertex) must never UNSET a vertex another slot reached
+        tgt_v = or_combine(torch.zeros_like(state.visited),
+                           targets.clamp(0, nv - 1), fvalid)
+        tgt_v = tgt_v & ~state.visited
+        visited = state.visited | tgt_v
+        hit = _hit_mask(ctx, tgt_v)
+        nxt = compact_mask(hit, cap, _num_join(ctx))
+        ovf = hit.sum(-1, dtype=torch.int32) > cap
         return _install_edge_frontier(ctx, state, nxt, visited, ovf)
 
 
@@ -732,8 +853,8 @@ class HybridPullStep(Operator):
 
     def step(self, ctx, state):
         ej = _num_join(ctx)
-        nv = state.visited.shape[0]
-        cap = state.frontier_pos.shape[0]
+        nv = state.visited.shape[-1]
+        cap = state.frontier_pos.shape[-1]
         fvalid = PosBlock(state.frontier_pos, state.frontier_count
                           ).valid_mask()
         srcs = _join_src_at(ctx, state.frontier_pos)
@@ -742,7 +863,7 @@ class HybridPullStep(Operator):
         tgt_v = _dense_pull(ctx, prev_v, state.visited, self.expand_fn)
         hit = _hit_mask(ctx, tgt_v)
         nxt = compact_mask(hit, cap, ej)
-        ovf = hit.sum(dtype=torch.int32) > cap
+        ovf = hit.sum(-1, dtype=torch.int32) > cap
         return _install_edge_frontier(ctx, state, nxt, state.visited | tgt_v,
                                       ovf)
 
@@ -985,12 +1106,13 @@ class DeferredEmit:
 
     def finish(self, ctx, pipeline, state):
         vd = state.vertex_depth
-        nv = vd.shape[0]
-        src_depth = vd[ctx.join_src.clamp(0, nv - 1)]
+        nv = vd.shape[-1]
+        src_depth = vd[..., ctx.join_src.clamp(0, nv - 1)]
         if ctx.bidir:
             src_depth = torch.cat([src_depth,
-                                   vd[ctx.join_dst.clamp(0, nv - 1)]])
-        emitted = (src_depth >= 0) & (src_depth < state.depth)
+                                   vd[..., ctx.join_dst.clamp(0, nv - 1)]],
+                                  -1)
+        emitted = (src_depth >= 0) & (src_depth < state.depth[..., None])
         return _emit(ctx, pipeline.caps.result, self.cols, state, emitted,
                      src_depth)
 
@@ -999,16 +1121,18 @@ def _emit(ctx: Context, cap_r: int, cols: Tuple[str, ...],
           state: TraversalState, emitted: torch.Tensor,
           edge_depth: torch.Tensor) -> BFSResult:
     """The dense finishers' shared tail: (EJ,) emitted mask and per-edge
-    level -> compacted positions, one late gather, row depths."""
+    level -> compacted positions, one late gather, row depths (each lane
+    compacted on its own, one gather for all lanes)."""
     ej = _num_join(ctx)
     blk = compact_mask(emitted, cap_r, ej)
     pos_real = _to_real(ctx, blk.positions)
     values = ctx.table.take(pos_real, cols)
-    overflow = state.overflow | (emitted.sum(dtype=torch.int32) > cap_r)
-    row_depths = torch.where(blk.valid_mask(),
-                             edge_depth[blk.positions.clamp(0, ej - 1)], -1)
-    dirs = state.level_dirs if state.level_dirs.shape[0] else None
-    vv = state.vertex_val if state.vertex_val.shape[0] else None
+    overflow = state.overflow | (emitted.sum(-1, dtype=torch.int32) > cap_r)
+    row_depths = torch.where(
+        blk.valid_mask(),
+        lane_take(edge_depth, blk.positions.clamp(0, ej - 1)), -1)
+    dirs = state.level_dirs if state.level_dirs.shape[-1] else None
+    vv = state.vertex_val if state.vertex_val.shape[-1] else None
     return BFSResult(values, pos_real, blk.count, state.depth, overflow,
                      row_depths, dirs, vv)
 
@@ -1036,8 +1160,10 @@ class Pipeline:
     #   boolean BFS with zero-size value placeholders
 
 
-def _initial_state(pipeline: Pipeline, ctx: Context, num_vertices: int
-                   ) -> TraversalState:
+def _initial_state(pipeline: Pipeline, ctx: Context, num_vertices: int,
+                   lanes: Optional[int] = None) -> TraversalState:
+    """The state before the seed; with ``lanes``, of a batch: every field
+    but ``depth`` with a leading lane axis."""
     cap_f, cap_r = pipeline.caps.frontier, pipeline.caps.result
     ej = _num_join(ctx)
     dev = ctx.join_src.device
@@ -1046,14 +1172,16 @@ def _initial_state(pipeline: Pipeline, ctx: Context, num_vertices: int
     deferred = pipeline.tracks_vertex_depth
     sr = (get_semiring(pipeline.semiring) if pipeline.semiring != "reach"
           else None)
+    lead = () if lanes is None else (lanes,)
 
     def full(shape, fill, dtype=torch.int32):
-        return torch.full(shape, fill, dtype=dtype, device=dev)
+        return torch.full(lead + shape, fill, dtype=dtype, device=dev)
 
     def none(dtype=torch.int32):            # a zero-size placeholder
-        return torch.zeros((0,), dtype=dtype, device=dev)
+        return torch.zeros(lead + (0,), dtype=dtype, device=dev)
 
-    # one 0-d zero serves every scalar: no operator writes a scalar in place
+    # one zero serves every scalar (and, for one root, the depth): no
+    # operator writes a scalar in place
     zero = full((), 0)
     return TraversalState(
         frontier_pos=none() if dense else full((cap_f,), ej),
@@ -1073,7 +1201,8 @@ def _initial_state(pipeline: Pipeline, ctx: Context, num_vertices: int
                     if pipeline.rep == "pos" and not track else none()),
         result_depth=none() if track or deferred else full((cap_r,), -1),
         result_count=zero,
-        depth=zero,
+        depth=zero if lanes is None else torch.zeros(
+            (), dtype=torch.int32, device=dev),
         overflow=full((), False, torch.bool),
         vertex_depth=full((num_vertices,), -1) if deferred else none(),
         visited_count=zero,
@@ -1091,11 +1220,12 @@ def _host_counts(pipeline: Pipeline, state: TraversalState, depth: int
     """The level's scalars on the host, in ONE device-to-host copy: the
     frontier count, and for a switch pipeline also the discovered-vertex
     count its predicate reads (the deferred steps keep it as a scalar, the
-    others pay a popcount of ``visited``)."""
+    others pay a popcount of ``visited``).  In a batch, one copy of (L,)
+    or (2, L) counts for all lanes."""
     if not pipeline.tracks_switch:
-        return HostCounts(depth, int(state.frontier_count.item()))
-    visited = (state.visited_count if state.vertex_depth.shape[0]
-               else state.visited.sum(dtype=torch.int32))
+        return HostCounts(depth, state.frontier_count.tolist())
+    visited = (state.visited_count if state.vertex_depth.shape[-1]
+               else state.visited.sum(-1, dtype=torch.int32))
     frontier, visited = torch.stack([state.frontier_count, visited]).tolist()
     return HostCounts(depth, frontier, visited)
 
@@ -1128,3 +1258,58 @@ def execute(pipeline: Pipeline, ctx: Context, root: int, num_vertices: int
             ) -> BFSResult:
     """Single-root pipeline execution (the reference's jitted entry)."""
     return fixed_point(pipeline, ctx, root, num_vertices)
+
+
+def fixed_point_batch(pipeline: Pipeline, ctx: Context, roots,
+                      num_vertices: int) -> BFSResult:
+    """Run a reach pipeline for many roots at once: the state carries a
+    leading lane axis, the operators step every lane still in the loop
+    together, and the level's scalars come to the host once per level for
+    all of them.  A lane whose frontier has died (or that reached the
+    depth bound) is retired from the loop state, as the reference's vmap
+    freezes it; the loop ends when no lane is left, and one finisher runs
+    over the retired states put back in lane order.  Lane ``i`` of the
+    result is bit-identical to :func:`fixed_point` on ``roots[i]``."""
+    roots = [int(r) for r in roots]
+    state = _initial_state(pipeline, ctx, num_vertices, lanes=len(roots))
+    state = pipeline.seed.init(ctx, state, roots)
+    for op in pipeline.ops:
+        state = op.init(ctx, state, roots)
+    limit = pipeline.max_depth + (1 if pipeline.inclusive else 0)
+    lanes = list(range(len(roots)))       # the lanes still in the loop
+    retired = []                          # (lanes, their state)
+    depths = [0] * len(roots)             # levels each lane executed
+    for depth in range(limit):
+        if not lanes:
+            break
+        state = state._replace(host=_host_counts(pipeline, state, depth))
+        live = [i for i, f in enumerate(state.host.frontier) if f > 0]
+        if len(live) < len(lanes):
+            dead = [i for i, f in enumerate(state.host.frontier) if f <= 0]
+            retired.append(([lanes[i] for i in dead],
+                            _select_lanes(state, dead)))
+            for i in dead:
+                depths[lanes[i]] = depth
+            lanes = [lanes[i] for i in live]
+            if not lanes:
+                break
+            state = _select_lanes(state, live)
+        for op in pipeline.ops:
+            state = op.step(ctx, state)
+        state = state._replace(depth=state.depth + 1)
+    for lane in lanes:
+        depths[lane] = limit
+    if lanes:
+        retired.append((lanes, state))
+    depth = torch.tensor(depths, dtype=torch.int32,
+                         device=state.depth.device)
+    state = _merge_lanes(retired, depth) if retired else \
+        state._replace(depth=depth)
+    return pipeline.finisher.finish(ctx, pipeline, state)
+
+
+def execute_batch(pipeline: Pipeline, ctx: Context, roots,
+                  num_vertices: int) -> BFSResult:
+    """Batched multi-root execution (the reference's vmapped entry): every
+    field of the result has a leading ``len(roots)`` lane axis."""
+    return fixed_point_batch(pipeline, ctx, roots, num_vertices)

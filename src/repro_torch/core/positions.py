@@ -4,7 +4,9 @@ PosDB's positional operators exchange blocks of row ids instead of value
 tuples.  As in the reference every buffer has a fixed capacity: a position
 block is an ``int32`` vector plus a live count, and dead slots hold an
 out-of-range sentinel so downstream gathers give zeros (see
-``ColumnTable.take``).
+``ColumnTable.take``).  A batch of roots adds a leading lane axis: an
+``(L, cap)`` block with ``(L,)`` counts, each lane compacted and appended
+on its own along the last axis.
 
 The reference's scatters DROP out-of-range indices; torch on CUDA would
 assert instead.  So every dropping scatter here writes into a copy with one
@@ -16,6 +18,8 @@ from typing import NamedTuple
 
 import torch
 
+from .csr import lane_cumsum
+
 __all__ = ["PosBlock", "empty_block", "compact_mask", "append_block"]
 
 
@@ -24,6 +28,7 @@ class PosBlock(NamedTuple):
 
     positions : (cap,) int32 — valid entries first, sentinel padding after
     count     : ()     int32 — number of live entries
+    (``(L, cap)`` and ``(L,)`` with a lane axis)
     """
 
     positions: torch.Tensor
@@ -31,11 +36,12 @@ class PosBlock(NamedTuple):
 
     @property
     def capacity(self) -> int:
-        return self.positions.shape[0]
+        return self.positions.shape[-1]
 
     def valid_mask(self) -> torch.Tensor:
-        return torch.arange(self.capacity, dtype=torch.int32,
-                            device=self.positions.device) < self.count
+        slots = torch.arange(self.capacity, dtype=torch.int32,
+                             device=self.positions.device)
+        return slots < self.count[..., None]
 
 
 def empty_block(capacity: int, sentinel: int, device) -> PosBlock:
@@ -50,16 +56,17 @@ def compact_mask(mask: torch.Tensor, capacity: int, sentinel: int
     """Turn a boolean row mask into a compacted position block (the columnar
     Filter operator).  Ascending order; matches beyond ``capacity`` are
     dropped (callers compare ``count`` with the capacity).  A cumsum
-    compaction: no host sync."""
-    n = mask.shape[0]
-    count = mask.sum(dtype=torch.int32)
-    rank = torch.cumsum(mask, 0, dtype=torch.int32) - 1
+    compaction: no host sync.  An ``(L, n)`` mask compacts each lane."""
+    n = mask.shape[-1]
+    lead = mask.shape[:-1]
+    count = mask.sum(-1, dtype=torch.int32)
+    rank = lane_cumsum(mask) - 1
     slot = torch.where(mask & (rank < capacity), rank, capacity)
-    out = torch.full((capacity + 1,), sentinel, dtype=torch.int32,
+    out = torch.full(lead + (capacity + 1,), sentinel, dtype=torch.int32,
                      device=mask.device)
-    out.scatter_(0, slot.long(),
-                 torch.arange(n, dtype=torch.int32, device=mask.device))
-    return PosBlock(out[:capacity], count.clamp(max=capacity))
+    out.scatter_(-1, slot.long(), torch.arange(
+        n, dtype=torch.int32, device=mask.device).expand(mask.shape))
+    return PosBlock(out[..., :capacity], count.clamp(max=capacity))
 
 
 def append_block(buf: torch.Tensor, buf_count: torch.Tensor, block: PosBlock
@@ -68,13 +75,13 @@ def append_block(buf: torch.Tensor, buf_count: torch.Tensor, block: PosBlock
 
     Returns (new_buffer, new_count, overflowed).  Entries past the buffer
     capacity are dropped (and flagged) rather than wrapped.  ``buf`` itself
-    is not modified."""
-    cap_r = buf.shape[0]
-    slots = buf_count + torch.arange(block.capacity, dtype=torch.int32,
-                                     device=buf.device)
+    is not modified.  With a lane axis each lane appends to its own row."""
+    cap_r = buf.shape[-1]
+    slots = buf_count[..., None] + torch.arange(
+        block.capacity, dtype=torch.int32, device=buf.device)
     live = block.valid_mask() & (slots < cap_r)
-    ext = torch.cat([buf, buf.new_zeros((1,))])
-    ext.scatter_(0, torch.where(live, slots, cap_r).long(),
+    ext = torch.cat([buf, buf.new_zeros(buf.shape[:-1] + (1,))], -1)
+    ext.scatter_(-1, torch.where(live, slots, cap_r).long(),
                  torch.where(live, block.positions, 0))
     new_count = (buf_count + block.count).clamp(max=cap_r)
-    return ext[:cap_r], new_count, (buf_count + block.count) > cap_r
+    return ext[..., :cap_r], new_count, (buf_count + block.count) > cap_r

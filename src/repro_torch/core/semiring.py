@@ -95,12 +95,16 @@ def or_combine(arr: torch.Tensor, idx: torch.Tensor, vals: torch.Tensor
                ) -> torch.Tensor:
     """Boolean scatter-or: ``arr[idx[i]] |= vals[i]``, spelled as the
     scatter-max it is in the reference.  ``scatter_reduce`` takes no bool, so
-    the max runs on int32.  ``arr`` is not modified."""
-    n = arr.shape[0]
-    ext = torch.zeros((n + 1,), dtype=torch.int32, device=arr.device)
-    ext[:n] = arr
-    ext.scatter_reduce_(0, _drop_slots(idx, n), vals.to(torch.int32), "amax")
-    return ext[:n].bool()
+    the max runs on int32.  ``arr`` is not modified.  An ``(L, n)`` ``arr``
+    scatters each lane's row of ``vals`` into its own row, at ``idx`` of
+    the same shape or at one ``(m,)`` index shared by every lane."""
+    n = arr.shape[-1]
+    ext = torch.zeros(arr.shape[:-1] + (n + 1,), dtype=torch.int32,
+                      device=arr.device)
+    ext[..., :n] = arr
+    ext.scatter_reduce_(-1, _drop_slots(idx, n).expand(vals.shape),
+                        vals.to(torch.int32), "amax")
+    return ext[..., :n].bool()
 
 
 def scatter_combine(sr: Semiring, arr: torch.Tensor, idx: torch.Tensor,

@@ -69,11 +69,12 @@ class ColumnTable:
         kernel launch per 32 columns.  A position in [-R, 0) counts from
         the end once; one >= R (the padding sentinel) or below -R gives
         zeros.  An empty table (R = 0) raises IndexError unless there is
-        no position."""
+        no position.  Positions of any shape (a batch's (L, R)) go
+        through the one call flattened."""
         names = self.names if names is None else tuple(names)
         cols = [self.columns[name] for name in names]
         rows = late_gather_columns(
             [col.reshape(col.shape[0], math.prod(col.shape[1:]))
-             for col in cols], positions)
+             for col in cols], positions.reshape(-1))
         return {name: r.reshape(positions.shape + col.shape[1:])
                 for name, col, r in zip(names, cols, rows)}

@@ -39,6 +39,13 @@
 //      and range starts never go to memory.  Block 0 writes
 //      min(total, capacity) and total > capacity.
 // At F = 0 only the expansion runs, with a total of 0.
+//
+// Lanes: a batch of roots expands L frontiers of one F over the one shared
+// CSR in the same three launches, blockIdx.y being the lane.  Each lane
+// has its own rows of targets, flags, block sums, ends and output, its own
+// count and overflow flag; the pointers are moved to the lane's row at the
+// top of each kernel, so a lane's scan reads only its own tile sums.  One
+// root is L = 1.
 #include <cstdint>
 
 #include <cuda_runtime.h>
@@ -51,10 +58,13 @@ constexpr int kItems = 8;                   // targets a thread, kernels 1-2
 constexpr int kTile = kThreads * kItems;    // targets a block, kernels 1-2
 constexpr unsigned kFullMask = 0xffffffffu;
 
+constexpr int64_t kMaxLanes = 65535;        // gridDim.y's limit
+
 // The degrees of this thread's kItems targets of the block's tile.  Warp w
 // owns the tile's targets [w * 32 * kItems, (w + 1) * 32 * kItems); item k
 // of lane l is the (k * 32 + l)-th of them.  A degree is
 // indptr[t + 1] - indptr[t] for a valid target t in [0, V), else 0.
+// `targets` and `valid` are the block's lane's rows.
 __device__ __forceinline__ void tile_degrees(
     const int32_t* __restrict__ indptr, const int32_t* __restrict__ targets,
     const uint8_t* __restrict__ valid, int64_t frontier,
@@ -98,6 +108,10 @@ frontier_degree_sums(const int32_t* __restrict__ indptr,
                      int32_t* __restrict__ block_sums, int64_t frontier,
                      int32_t num_vertices) {
   __shared__ int32_t scratch[kWarps];
+  const int64_t lane_row = static_cast<int64_t>(blockIdx.y) * frontier;
+  targets += lane_row;
+  valid += lane_row;
+  block_sums += static_cast<int64_t>(blockIdx.y) * gridDim.x;
   int32_t deg[kItems];
   tile_degrees(indptr, targets, valid, frontier, num_vertices, deg);
   int32_t s = 0;
@@ -116,10 +130,16 @@ frontier_scan_ends(const int32_t* __restrict__ indptr,
                    int32_t num_vertices) {
   __shared__ int32_t scratch[kWarps];
   __shared__ int32_t warp_totals[kWarps];
+  const int64_t lane_row = static_cast<int64_t>(blockIdx.y) * frontier;
+  targets += lane_row;
+  valid += lane_row;
+  ends += lane_row;
+  block_sums += static_cast<int64_t>(blockIdx.y) * gridDim.x;
   int32_t deg[kItems];
   tile_degrees(indptr, targets, valid, frontier, num_vertices, deg);
 
-  // the exclusive prefix of this tile: the sums of the tiles before it
+  // the exclusive prefix of this tile: the sums of the lane's tiles before
+  // it
   int32_t before = 0;
   for (unsigned b = threadIdx.x; b < blockIdx.x; b += kThreads) {
     before += __ldg(block_sums + b);
@@ -181,6 +201,12 @@ frontier_expand_slots(const int32_t* __restrict__ indptr,
                       uint8_t* __restrict__ out_overflow, int32_t frontier,
                       int64_t capacity, int32_t num_edges) {
   __shared__ int32_t range[2];   // producing slots of the first, last live
+  const int64_t lane_row = static_cast<int64_t>(blockIdx.y) * frontier;
+  targets += lane_row;
+  ends += lane_row;
+  out += static_cast<int64_t>(blockIdx.y) * capacity;
+  out_count += blockIdx.y;
+  out_overflow += blockIdx.y;
   const int32_t total = frontier > 0 ? __ldg(ends + frontier - 1) : 0;
   if (blockIdx.x == 0 && threadIdx.x == 0) {
     *out_count = static_cast<int32_t>(
@@ -217,21 +243,23 @@ frontier_expand_slots(const int32_t* __restrict__ indptr,
 
 }  // namespace
 
-// indptr (V + 1,), perm (E,), targets (F,) int32 and valid (F,) bytes of
-// 0 or 1 in; block_sums (ceil(F / kTile),) and ends (F,) int32 scratch;
-// out (capacity,) int32, out_count a 0-d int32 and out_overflow a 0-d byte
-// written.  The caller guarantees F, V, E and capacity in [0, 2^31).
-// Returns the first launch error, or 0.
+// indptr (V + 1,), perm (E,) shared; targets (L, F) int32 and valid
+// (L, F) bytes of 0 or 1 in; block_sums (L, ceil(F / kTile)) and ends
+// (L, F) int32 scratch; out (L, capacity) int32, out_count (L,) int32 and
+// out_overflow (L,) bytes written, all row-major and contiguous.  The
+// caller guarantees F, V, E and capacity in [0, 2^31) and L in [1, 65535]
+// (gridDim.y's limit); anything else is refused, never cut.  Returns the
+// first launch error, or 0.
 extern "C" int frontier_expand_launch(
     const void* indptr, const void* perm, const void* targets,
     const void* valid, void* block_sums, void* ends, void* out,
-    void* out_count, void* out_overflow, int64_t frontier,
+    void* out_count, void* out_overflow, int64_t lanes, int64_t frontier,
     int64_t num_vertices, int64_t num_edges, int64_t capacity,
     void* stream) {
   constexpr int64_t kMax = int64_t{1} << 31;
-  if (frontier < 0 || frontier >= kMax || num_vertices < 0 ||
-      num_vertices >= kMax || num_edges < 0 || num_edges >= kMax ||
-      capacity < 0 || capacity >= kMax) {
+  if (lanes < 1 || lanes > kMaxLanes || frontier < 0 || frontier >= kMax ||
+      num_vertices < 0 || num_vertices >= kMax || num_edges < 0 ||
+      num_edges >= kMax || capacity < 0 || capacity >= kMax) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const auto s = static_cast<cudaStream_t>(stream);
@@ -241,7 +269,8 @@ extern "C" int frontier_expand_launch(
   auto* block_sums_ = static_cast<int32_t*>(block_sums);
   auto* ends_ = static_cast<int32_t*>(ends);
   if (frontier > 0) {
-    const auto tiles = static_cast<unsigned>((frontier + kTile - 1) / kTile);
+    const dim3 tiles(static_cast<unsigned>((frontier + kTile - 1) / kTile),
+                     static_cast<unsigned>(lanes));
     frontier_degree_sums<<<tiles, kThreads, 0, s>>>(
         indptr_, targets_, valid_, block_sums_, frontier,
         static_cast<int32_t>(num_vertices));
@@ -255,7 +284,9 @@ extern "C" int frontier_expand_launch(
   }
   int64_t blocks = (capacity + kThreads - 1) / kThreads;
   if (blocks < 1) blocks = 1;   // block 0 writes the count and the flag
-  frontier_expand_slots<<<static_cast<unsigned>(blocks), kThreads, 0, s>>>(
+  const dim3 grid(static_cast<unsigned>(blocks),
+                  static_cast<unsigned>(lanes));
+  frontier_expand_slots<<<grid, kThreads, 0, s>>>(
       indptr_, static_cast<const int32_t*>(perm), targets_, ends_,
       static_cast<int32_t*>(out), static_cast<int32_t*>(out_count),
       static_cast<uint8_t*>(out_overflow), static_cast<int32_t>(frontier),

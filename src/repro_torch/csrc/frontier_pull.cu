@@ -36,6 +36,11 @@
 //     spread it over 327 warps.
 // Every output byte is written by the kernels, so no memset precedes them.
 // The result is boolean: bit-equal to the plain version on any input.
+//
+// Lanes: a batch of roots pulls L (V,) byte planes of frontier, visited
+// and output over the one shared layout in the same 1 or 2 launches,
+// blockIdx.y being the lane; each kernel moves the plane pointers to its
+// lane's row first.  One root is L = 1.
 #include <cstdint>
 
 #include <cuda_runtime.h>
@@ -48,6 +53,7 @@ constexpr int kShortRow = 16;        // SHORT_ROW in layout.py
 constexpr int kTile = 256;           // HUB_TILE in layout.py
 constexpr int kPerLane = kTile / 32;
 constexpr int kBatch = 4;            // a thread row's loads in flight
+constexpr int64_t kMaxLanes = 65535; // gridDim.y's limit
 
 __global__ void __launch_bounds__(kThreads)
 frontier_pull_rows(const int32_t* __restrict__ ptr,
@@ -58,6 +64,10 @@ frontier_pull_rows(const int32_t* __restrict__ ptr,
   const int64_t v = static_cast<int64_t>(blockIdx.x) * kThreads +
                     threadIdx.x;
   if (v >= num_vertices) return;
+  const int64_t plane = static_cast<int64_t>(blockIdx.y) * num_vertices;
+  frontier += plane;
+  visited += plane;
+  out += plane;
   bool hit = false;
   if (!__ldg(visited + v)) {
     const int32_t begin = __ldg(ptr + v);
@@ -85,11 +95,15 @@ frontier_pull_tiles(const int32_t* __restrict__ ptr,
                     int32_t num_tiles,
                     const uint8_t* __restrict__ frontier,
                     const uint8_t* __restrict__ visited,
-                    uint8_t* __restrict__ out) {
+                    uint8_t* __restrict__ out, int32_t num_vertices) {
   // warp-uniform exits, so the whole warp reaches the vote below
   const int64_t t = static_cast<int64_t>(blockIdx.x) * kWarpsPerBlock +
                     threadIdx.x / 32;
   if (t >= num_tiles) return;
+  const int64_t plane = static_cast<int64_t>(blockIdx.y) * num_vertices;
+  frontier += plane;
+  visited += plane;
+  out += plane;
   const int32_t v = __ldg(tile_vtx + t);
   if (__ldg(visited + v)) return;
   const int lane = threadIdx.x & 31;
@@ -110,16 +124,21 @@ frontier_pull_tiles(const int32_t* __restrict__ ptr,
 
 }  // namespace
 
+// The layout (ptr, nbr, tile_vtx, tile_start) is shared; frontier,
+// visited and out are (L, V) row-major byte planes.  L must be in
+// [1, 65535] (gridDim.y's limit): anything else is refused, never cut.
 extern "C" int frontier_pull_launch(const void* ptr, const void* nbr,
                                     const void* tile_vtx,
                                     const void* tile_start,
                                     int64_t num_tiles, const void* frontier,
                                     const void* visited, void* out,
-                                    int64_t num_vertices, int64_t short_row,
-                                    int64_t tile, void* stream) {
+                                    int64_t lanes, int64_t num_vertices,
+                                    int64_t short_row, int64_t tile,
+                                    void* stream) {
   // the layout must have been cut for this kernel's row limit and tile
   if (short_row != kShortRow || tile != kTile || num_vertices < 1 ||
-      num_vertices > INT32_MAX || num_tiles < 0 || num_tiles > INT32_MAX)
+      num_vertices > INT32_MAX || num_tiles < 0 || num_tiles > INT32_MAX ||
+      lanes < 1 || lanes > kMaxLanes)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const auto* p = static_cast<const int32_t*>(ptr);
@@ -127,17 +146,22 @@ extern "C" int frontier_pull_launch(const void* ptr, const void* nbr,
   const auto* f = static_cast<const uint8_t*>(frontier);
   const auto* vis = static_cast<const uint8_t*>(visited);
   auto* o = static_cast<uint8_t*>(out);
-  const int64_t row_blocks = (num_vertices + kThreads - 1) / kThreads;
-  frontier_pull_rows<<<static_cast<unsigned>(row_blocks), kThreads, 0, s>>>(
+  const dim3 row_grid(
+      static_cast<unsigned>((num_vertices + kThreads - 1) / kThreads),
+      static_cast<unsigned>(lanes));
+  frontier_pull_rows<<<row_grid, kThreads, 0, s>>>(
       p, n, f, vis, o, static_cast<int32_t>(num_vertices));
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || num_tiles == 0) return static_cast<int>(err);
-  const int64_t tile_blocks = (num_tiles + kWarpsPerBlock - 1) /
-                              kWarpsPerBlock;
-  frontier_pull_tiles<<<static_cast<unsigned>(tile_blocks), kThreads, 0,
-                        s>>>(p, n, static_cast<const int32_t*>(tile_vtx),
-                             static_cast<const int32_t*>(tile_start),
-                             static_cast<int32_t>(num_tiles), f, vis, o);
+  const dim3 tile_grid(
+      static_cast<unsigned>((num_tiles + kWarpsPerBlock - 1) /
+                            kWarpsPerBlock),
+      static_cast<unsigned>(lanes));
+  frontier_pull_tiles<<<tile_grid, kThreads, 0, s>>>(
+      p, n, static_cast<const int32_t*>(tile_vtx),
+      static_cast<const int32_t*>(tile_start),
+      static_cast<int32_t>(num_tiles), f, vis, o,
+      static_cast<int32_t>(num_vertices));
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -4,8 +4,10 @@ loop.  It is the engine's own vectorized expansion
 held against exactly what the engine computes without the kernel.
 
 :func:`expand_case` makes the seeded inputs that split the kernel's tiles
-(2,048 targets a scan block, 256 output slots an expansion block), shared
-by the CPU parity tests, the card tests and ``chip_smoke.py``."""
+(2,048 targets a scan block, 256 output slots an expansion block), and
+:func:`expand_lanes_case` stacks each as the lanes of one batched call,
+shared by the CPU parity tests, the card tests and ``chip_smoke.py``.
+The plain version takes the lane axis as the engine's expansion does."""
 from __future__ import annotations
 
 import numpy as np
@@ -90,3 +92,18 @@ def expand_case(case: str):
     elif not capacity:
         capacity = total + 300
     return src, v, targets, valid, capacity
+
+
+def expand_lanes_case(case: str):
+    """:func:`expand_case` stacked as four lanes of one call over its
+    graph: (src, V, targets (4, F), valid (4, F), capacity).  Lane 0 is
+    the case; lane 1 has no valid target (an empty lane beside, in the
+    ``hub`` case, the hub's); lane 2 is lane 0 reversed (another scan
+    over the same total, so the same overflow); lane 3 keeps every other
+    valid target of lane 0."""
+    src, v, targets, valid, capacity = expand_case(case)
+    keep = valid.copy()
+    keep[np.flatnonzero(valid)[::2]] = False
+    return (src, v, np.stack([targets, targets, targets[::-1], targets]),
+            np.stack([valid, np.zeros_like(valid), valid[::-1], keep]),
+            capacity)

@@ -9,7 +9,8 @@ On CUDA tensors the hand-written kernel walks ``layout``, the
 :class:`PullLayout` of ``rcsr`` that ``Dataset`` builds once per
 orientation; without one the call builds its own first (two host syncs
 and a dozen torch ops a call, so slower, same result).  It launches or
-raises.  An empty ``perm`` gives a zero mask without a launch.
+raises.  An empty ``perm`` gives a zero mask without a launch.  (L, V)
+planes (a batch of roots) pull every lane in the same one C call.
 ``LAUNCHES`` counts kernel launches (one C call, 1 or 2 device launches).
 """
 from __future__ import annotations
@@ -34,11 +35,12 @@ def frontier_pull_fused(rcsr: CSRIndex, join_src: torch.Tensor,
     if frontier.device.type == "cpu" and rcsr.perm.device.type == "cpu":
         return frontier_pull_ref(rcsr, join_src, join_dst, frontier,
                                  visited)
-    if rcsr.perm.shape[0] == 0:
+    no_lane = frontier.dim() == 2 and frontier.shape[0] == 0
+    if rcsr.perm.shape[0] == 0 or no_lane:
         return torch.zeros_like(frontier)
     if layout is None:
         layout = build_pull_layout(rcsr, join_src, join_dst,
-                                   frontier.shape[0])
+                                   frontier.shape[-1])
     # bool is one byte: the kernel reads and writes the same bytes as uint8
     out = frontier_pull_cuda(layout, frontier.contiguous().view(torch.uint8),
                              visited.contiguous().view(torch.uint8))

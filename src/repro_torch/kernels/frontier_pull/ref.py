@@ -8,8 +8,10 @@ segment-OR per owning vertex.  :func:`frontier_pull_layout_ref` computes
 the same mask from the kernel's :class:`PullLayout`, per vertex.
 
 :func:`pull_case` makes the seeded inputs that take the kernel through its
-thread rows, its hub tiles and the clamped ids, shared by the CPU parity
-tests, the card tests and ``chip_smoke.py``."""
+thread rows, its hub tiles and the clamped ids, and :func:`pull_lanes_case`
+stacks each as the lanes of one batched call, shared by the CPU parity
+tests, the card tests and ``chip_smoke.py``.  Both plain versions take a
+leading lane axis."""
 from __future__ import annotations
 
 import numpy as np
@@ -23,12 +25,14 @@ from .layout import HUB_TILE, SHORT_ROW, PullLayout
 def frontier_pull_ref(rcsr: CSRIndex, join_src: torch.Tensor,
                       join_dst: torch.Tensor, frontier: torch.Tensor,
                       visited: torch.Tensor) -> torch.Tensor:
-    nv = frontier.shape[0]
+    """(V,) bool frontier and visited -> the (V,) next frontier; (L, V)
+    planes pull each lane over the one shared reverse CSR."""
+    nv = frontier.shape[-1]
     cand = ~visited
     perm = rcsr.perm
     nbr = join_src[perm].clamp(0, nv - 1)
     vtx = join_dst[perm].clamp(0, nv - 1)
-    contrib = cand[vtx] & frontier[nbr]
+    contrib = cand[..., vtx] & frontier[..., nbr]
     nxt = or_combine(torch.zeros_like(frontier), vtx, contrib)
     return nxt & cand
 
@@ -37,11 +41,12 @@ def frontier_pull_layout_ref(layout: PullLayout, frontier: torch.Tensor,
                              visited: torch.Tensor) -> torch.Tensor:
     """``out[v] = ~visited[v] & any(frontier[nbr[ptr[v]:ptr[v+1]]])``: a
     vertex's row holds a frontier entry iff the running count of frontier
-    entries grows across it."""
-    hits = frontier[layout.nbr].to(torch.int32)
-    seen = torch.cat([hits.new_zeros((1,)), torch.cumsum(hits, 0,
-                                                         dtype=torch.int32)])
-    return (seen[layout.ptr[1:]] > seen[layout.ptr[:-1]]) & ~visited
+    entries grows across it.  (L, V) planes give each lane's row."""
+    hits = frontier[..., layout.nbr].to(torch.int32)
+    seen = torch.cat([hits.new_zeros(hits.shape[:-1] + (1,)),
+                      torch.cumsum(hits, -1, dtype=torch.int32)], -1)
+    return (seen[..., layout.ptr[1:]] > seen[..., layout.ptr[:-1]]) \
+        & ~visited
 
 
 # The cases of :func:`pull_case`.
@@ -109,3 +114,16 @@ def pull_case(case: str):
     elif case == "all_visited":
         visited[:] = True
     return src, dst, frontier, visited
+
+
+def pull_lanes_case(case: str):
+    """:func:`pull_case` stacked as four lanes of one call over its graph:
+    (src, dst, frontier (4, V), visited (4, V)).  Lane 0 is the case; lane
+    1 has an empty frontier; lane 2's frontier is lane 0's moved on by one
+    vertex, with it visited; lane 3 has visited only its frontier, so
+    every other vertex is open."""
+    src, dst, frontier, visited = pull_case(case)
+    moved = np.roll(frontier, 1)
+    return (src, dst,
+            np.stack([frontier, np.zeros_like(frontier), moved, frontier]),
+            np.stack([visited, visited, visited | moved, frontier]))
