@@ -88,7 +88,30 @@ Phases (any failure raises and the script exits non-zero):
    latencies and ``torch.profiler`` lines follow (the forced-pull
    ``diropt`` root 0's, the ``bags`` call's and the 8-root
    ``precursive`` and ``diropt`` batches' among them);
-4. print one ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}``
+4. the paper's tuple-based and row-store engines (``trecursive``,
+   ``rowstore``, ``rowstore_index`` and the three Exp-3 rewrites) on the
+   deployment's table without the weight column, root 0 outbound, and
+   ``trecursive`` and
+   ``trecursive_rewrite`` from the deepest vertex inbound and both ways,
+   through ``run_query`` (the row table, 47 slots of 188 bytes a row, is
+   built on the first row-store request): every result equal to the
+   port's CPU run
+   bit for bit, root 0's rows (their ids mapped back to positions where
+   the recursion carried values) equal to the BFS oracle, and the path's
+   launches equal to the CPU run's levels (``frontier_expand`` a level on
+   the IndexJoin engines, ``late_gather`` a level and one for the seed
+   block, one more for a rewrite's top-level join); a ``profile:`` line
+   each; ``late_gather`` at the row table's shape (``late_gather rows
+   case:``, ``take_rows`` at ``rowstore`` root 0's widest level, with
+   ``index_select`` as the library call); then the paper's Exp 1-3
+   (Fig. 5-7) at depth 16 from root 0, ``exp1:`` on the same tree with no
+   payload column (rows of 7 slots, 28 bytes), ``exp2:`` and ``exp3:`` on
+   that 8-payload table: each engine's root 0 checked against the BFS
+   oracle, then its warm ms (median of 3), busy ms, launches and idle
+   share (the paper path's, where it ran the request), and its speedup
+   against ``rowstore`` (Exp 1-2) or
+   ``rowstore_rewrite`` (Exp 3) in warm and busy ms;
+5. print one ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}``
    line last.
 
 It imports nothing of JAX and nothing of the JAX package ``repro``.
@@ -113,9 +136,10 @@ from repro_torch.convert import dataset_from_numpy  # noqa: E402
 from repro_torch.core.bitmap import (diropt_hybrid_plan,  # noqa: E402
                                      diropt_plan)
 from repro_torch.core.csr import build_csr, expand_frontier  # noqa: E402
-from repro_torch.core.engine import (ENGINE_NAMES,  # noqa: E402
-                                     PUSH_COUNTERPART, EngineCaps,
-                                     RecursiveQuery, build_plan, result_lane,
+from repro_torch.core.engine import (PUSH_COUNTERPART,  # noqa: E402
+                                     VALUE_ENGINE_NAMES, EngineCaps,
+                                     RecursiveQuery, build_plan,
+                                     positions_available, result_lane,
                                      run_query, run_query_batch)
 from repro_torch.core.operators import execute  # noqa: E402
 from repro_torch.data.recsys_stream import (recsys_batch,  # noqa: E402
@@ -181,6 +205,24 @@ NEG_SEED = 4                 # the negative positions of late_gather's checks
 BATCH_ROOTS = 8              # benchmarks/exp1_bfs.py's lockstep batch
 BUCKET_ROOTS = 32            # one serving bucket of the reference's planner
 TRAVERSAL_KERNELS = ("frontier_expand", "frontier_pull")
+BATCH_ENGINES = ("precursive",) + DENSE_ENGINES   # the reach batches
+# the engines whose plan has a CSRIndexJoin, so frontier_expand each level
+INDEX_JOIN_ENGINES = ("precursive", "trecursive", "trecursive_rewrite",
+                      "rowstore_index", "rowstore_index_rewrite")
+# the paper's Exp 1-3 (benchmarks/exp1_bfs.py, exp2_payload.py and
+# exp3_rewrite.py; Fig. 5-7): the engines, the payload columns of the
+# table and the engine each speedup is read against.  Exp 1's table is
+# the deployment's tree with no payload column.
+EXPERIMENTS = (
+    ("exp1", "Fig. 5", ("precursive", "trecursive", "rowstore",
+                        "rowstore_index", "bitmap", "hybrid"), 0,
+     "rowstore"),
+    ("exp2", "Fig. 6", ("precursive", "trecursive", "rowstore"), 8,
+     "rowstore"),
+    ("exp3", "Fig. 7", ("precursive", "trecursive_rewrite",
+                        "rowstore_rewrite", "rowstore_index_rewrite"), 8,
+     "rowstore_rewrite"),
+)
 
 
 class Request(NamedTuple):
@@ -286,9 +328,21 @@ def make_weighted_requests(num_vertices: int) -> list[Request]:
                Request("bitmap", "inbound", last, "aggregate_sum")])
 
 
+def make_paper_requests(num_vertices: int) -> list[Request]:
+    """Each of the paper's tuple-based and row-store engines from root 0
+    outbound; the two tuple engines also from the deepest vertex inbound
+    and both ways (the row store is outbound-only)."""
+    last = num_vertices - 1
+    return ([Request(engine, "outbound", 0) for engine in VALUE_ENGINE_NAMES]
+            + [Request(engine, direction, last)
+               for engine in ("trecursive", "trecursive_rewrite")
+               for direction in ("inbound", "both")])
+
+
 def query(engine: str, direction: str = "outbound",
-          workload: str = "reach") -> RecursiveQuery:
-    return RecursiveQuery(engine, MAX_DEPTH, SPEC.payload_cols, CAPS,
+          workload: str = "reach",
+          payload_cols: int = SPEC.payload_cols) -> RecursiveQuery:
+    return RecursiveQuery(engine, MAX_DEPTH, payload_cols, CAPS,
                           direction=direction, workload=workload,
                           weight_col=None if workload == "reach"
                           else WEIGHT_COL)
@@ -321,7 +375,8 @@ def read_launches() -> dict:
 def launch_levels(req: Request, r, num_vertices: int) -> dict:
     """The levels at which the card's run of one request calls each
     per-level kernel, read off a run's result: ``frontier_expand`` at
-    every executed level of PRecursive (weighted or not) and at each
+    every executed level of PRecursive (weighted or not) and of the tuple
+    and row-store engines with an IndexJoin, and at each
     sparse (positional) push level of the hybrid engines,
     ``frontier_pull`` at each pull level, both only outside the fused
     ``both`` view (which has no kernel, as in the reference);
@@ -335,7 +390,7 @@ def launch_levels(req: Request, r, num_vertices: int) -> dict:
         out["spmm_segment"] = set(range(depth))
     if req.direction == "both":
         return out
-    if engine == "precursive":
+    if engine in INDEX_JOIN_ENGINES:
         out["frontier_expand"] = set(range(depth))
         return out
     dirs = (r.level_dirs.tolist() if r.level_dirs is not None
@@ -351,12 +406,24 @@ def launch_levels(req: Request, r, num_vertices: int) -> dict:
     return out
 
 
+def late_gathers(req: Request, r) -> int:
+    """``late_gather`` launches of one request: one take of all its output
+    columns; on the tuple and row-store engines one take a level and one
+    for the seed block (``EarlyMaterialize``, up to 32 columns a launch),
+    and one more for an Exp-3 rewrite's top-level join."""
+    if req.engine not in VALUE_ENGINE_NAMES:
+        return 1
+    return int(r.depth) + 1 + req.engine.endswith("_rewrite")
+
+
 def expected_launches(requests, results, num_vertices: int) -> dict:
     """The launches the card's run of ``requests`` must make, read off the
     CPU run's results: each per-level kernel once per level of
-    :func:`launch_levels`; ``late_gather`` once per request (one take of
-    all its output columns); ``embedding_bag`` never."""
-    out = {"frontier_expand": 0, "late_gather": len(requests),
+    :func:`launch_levels`; ``late_gather`` as :func:`late_gathers` says;
+    ``embedding_bag`` never."""
+    out = {"frontier_expand": 0,
+           "late_gather": sum(late_gathers(req, r)
+                              for req, r in zip(requests, results)),
            "frontier_pull": 0, "spmm_segment": 0, "embedding_bag": 0}
     for req, r in zip(requests, results):
         for kernel, levels in launch_levels(req, r, num_vertices).items():
@@ -412,14 +479,29 @@ def check_result_shape(r, caps: EngineCaps, label: str) -> None:
             require(bool(torch.isfinite(v).all()), f"{label}: {k} not finite")
 
 
-def check_root0(r, levels: list, spec: TreeSpec, label: str) -> None:
+def real_positions(engine: str, r, id_to_pos: torch.Tensor
+                   ) -> torch.Tensor:
+    """The edge positions of a result's rows: its positions, or, where the
+    engine's recursion carried values (positions all -1), the rows' ids
+    (float32 on the row store, exact below 2^24) mapped back to positions
+    through ``id_to_pos``, the inverse of the table's id column."""
+    if positions_available(engine):
+        return r.positions
+    ids = r.values["id"].cpu().long().clamp(0, id_to_pos.shape[0] - 1)
+    return id_to_pos[ids]
+
+
+def check_root0(r, levels: list, spec: TreeSpec, label: str,
+                positions: torch.Tensor | None = None) -> None:
     """Root 0 reaches the whole tree without overflow, level by level equal
-    to the pure-Python BFS oracle's ``levels``."""
+    to the pure-Python BFS oracle's ``levels``; ``positions`` are the rows'
+    edge positions (by default the result's)."""
     count = int(r.count)
     require(count == spec.num_edges,
             f"{label}: count {count} != {spec.num_edges}")
     require(not bool(r.overflow), f"{label} overflowed")
-    pos = r.positions[:count].cpu().numpy()
+    positions = r.positions if positions is None else positions
+    pos = positions[:count].cpu().numpy()
     depth = r.row_depths[:count].cpu().numpy()
     for d, want in enumerate(levels):
         require(set(pos[depth == d].tolist()) == want,
@@ -459,16 +541,17 @@ def device_events(prof) -> list:
 
 def profiled(run, enough) -> list:
     """The device events of a ``torch.profiler`` session around ``run()``.
-    On this card a session sometimes loses some or all of its device
-    events (PERF.md §7) and never gains one, so a session is taken again,
-    up to PROFILE_TRIES times, until ``enough(events)``; the fullest one
-    is returned."""
+    The session records device activity only: the host ops are not read,
+    and summing them costs the session most of its time.  On this card a
+    session sometimes loses some or all of its device events (PERF.md §7)
+    and never gains one, so a session is taken again, up to
+    PROFILE_TRIES times, until ``enough(events)``; the fullest one is
+    returned."""
     from torch.profiler import ProfilerActivity, profile
 
     best = None
     for _ in range(PROFILE_TRIES):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
             run()
             torch.cuda.synchronize()
         events = device_events(prof)
@@ -1573,7 +1656,7 @@ def warm_latency_ms(fn) -> float:
 
 
 def check_path(label, requests, got, expected, launches, want_launches,
-               levels, values) -> None:
+               levels, values, id_to_pos) -> None:
     """One path's results against the CPU run, its root-0 rows against
     the BFS oracle (and its root-0 vertex values against ``values``), and
     its launch counts against the CPU run's levels."""
@@ -1581,7 +1664,8 @@ def check_path(label, requests, got, expected, launches, want_launches,
         check_result_shape(r, CAPS, str(req))
         require_equal(r, want, str(req))
         if req.direction == "outbound" and req.root == 0:
-            check_root0(r, levels, SPEC, str(req))
+            check_root0(r, levels, SPEC, str(req),
+                        real_positions(req.engine, r, id_to_pos))
             if req.workload != "reach":
                 require(torch.equal(r.vertex_values.cpu(), torch.from_numpy(
                     values[req.workload])),
@@ -1608,7 +1692,7 @@ class Batch(NamedTuple):
 
 
 def make_batches(cols: dict, num_vertices: int) -> list[Batch]:
-    """Each engine outbound over the BATCH_ROOTS roots of
+    """Each reach-batch engine outbound over the BATCH_ROOTS roots of
     :func:`batch_roots`; PRecursive inbound and both ways over the same
     roots with the deepest vertex in place of the last random root; and
     PRecursive outbound over a serving bucket of BUCKET_ROOTS (the eight
@@ -1617,7 +1701,7 @@ def make_batches(cols: dict, num_vertices: int) -> list[Batch]:
     back = eight[:-1] + (num_vertices - 1,)
     more = np.random.default_rng(ROOT_SEED + 1).integers(
         0, num_vertices, BUCKET_ROOTS - len(eight)).tolist()
-    return ([Batch(engine, "outbound", eight) for engine in ENGINE_NAMES]
+    return ([Batch(engine, "outbound", eight) for engine in BATCH_ENGINES]
             + [Batch("precursive", "inbound", back),
                Batch("precursive", "both", back),
                Batch("precursive", "outbound", eight + tuple(more))])
@@ -1669,6 +1753,82 @@ def run_batch(ds, b: Batch, levels: list, card: str) -> dict:
         "warm_ms": warm, "one_by_one_warm_ms": one_by_one_ms,
         "peak_mib": peak_mib, "count": got.count.tolist(),
         "overflow": got.overflow.tolist(), "card": card}
+
+
+# ---------------------------------------------------------------------------
+# the paper's tuple-based and row-store engines, and Exp 1-3
+# ---------------------------------------------------------------------------
+
+def inverse_ids(cols: dict) -> torch.Tensor:
+    """The position of each id: the inverse of the table's id column (a
+    permutation of the edge positions)."""
+    ids = torch.from_numpy(cols["id"]).long()
+    out = torch.empty_like(ids)
+    out[ids] = torch.arange(ids.shape[0])
+    return out
+
+
+def widest_row_block(r, id_to_pos: torch.Tensor, capacity: int,
+                     num_rows: int) -> tuple[torch.Tensor, int]:
+    """The block of positions that ``rowstore``'s ``take_rows`` gathers at
+    the widest level of a root-0 run, rebuilt from its rows: the level's
+    positions in ascending order (as the scan compacts them), padded to
+    ``capacity`` with the sentinel ``num_rows``.  Returns (positions on
+    the CPU, level)."""
+    count = int(r.count)
+    depth = r.row_depths[:count].cpu()
+    level = int(torch.bincount(depth.long()).argmax())
+    pos = real_positions("rowstore", r, id_to_pos)[:count][depth == level]
+    out = torch.full((capacity,), num_rows, dtype=torch.int32)
+    out[:pos.shape[0]] = pos.sort().values.to(torch.int32)
+    return out, level
+
+
+def exp_entry(ds, engine: str, payload_cols: int, spec: TreeSpec,
+              levels: list, id_to_pos: torch.Tensor) -> dict:
+    """One engine's root 0 outbound at depth 16 on ``ds``: its rows
+    checked against the BFS oracle's ``levels``, then its warm ms (median
+    of 3, host clock) and its ``torch.profiler`` busy ms, launches and
+    idle share."""
+    q = query(engine, payload_cols=payload_cols)
+    label = f"{engine} outbound root 0 N={payload_cols}"
+    r = run_query(q, ds, 0)
+    check_root0(r, levels, spec, label, real_positions(engine, r, id_to_pos))
+    warm = warm_latency_ms(lambda: run_query(q, ds, 0))
+    return exp_numbers(warm, profile_call(label, lambda: run_query(q, ds, 0),
+                                          warm))
+
+
+def exp_numbers(warm_ms: float, prof: dict) -> dict:
+    """An experiment's numbers of one request from its warm ms and its
+    :func:`profile_call`."""
+    return {"warm_ms": warm_ms, "busy_ms": prof["device_ms"],
+            "launches": prof["device_launches"],
+            "idle_share": prof["idle_share"]}
+
+
+def exp_line(name: str, fig: str, engines, payload_cols: int, baseline: str,
+             ds, spec: TreeSpec, levels: list, id_to_pos: torch.Tensor,
+             card: str, measured: dict) -> dict:
+    """One of the paper's experiments on the card: each engine's numbers
+    from ``measured`` (keyed by payload columns and engine), measured by
+    :func:`exp_entry` where they are not there yet, and its speedup
+    against ``baseline`` in warm and in busy ms.  Reports; it gates only
+    the rows' correctness."""
+    entries = {}
+    for e in engines:
+        if (payload_cols, e) not in measured:
+            measured[payload_cols, e] = exp_entry(ds, e, payload_cols, spec,
+                                                  levels, id_to_pos)
+        entries[e] = dict(measured[payload_cols, e])
+    base = entries[baseline]
+    for entry in entries.values():
+        entry[f"speedup_vs_{baseline}"] = base["warm_ms"] / entry["warm_ms"]
+        entry[f"busy_speedup_vs_{baseline}"] = \
+            base["busy_ms"] / entry["busy_ms"]
+    return {"exp": name, "paper": fig, "payload_cols": payload_cols,
+            "row_bytes": 4 * ds.rows.width, "root": 0, "depth": MAX_DEPTH,
+            "caps": list(CAPS), "engines": entries, "card": card}
 
 
 # ---------------------------------------------------------------------------
@@ -1730,6 +1890,17 @@ def main() -> None:
           f"and {len(forced_plans)} forced-pull runs in {t1 - t0:.3f} s, "
           f"{len(weighted_requests)} weighted requests in "
           f"{time.perf_counter() - t1:.3f} s (host clock)")
+    # the paper's engines on the deployment's table as the paper has it,
+    # without the weight column (47 slots a row)
+    paper_cols = {k: v for k, v in cols.items() if k != WEIGHT_COL}
+    paper_requests = make_paper_requests(SPEC.num_vertices)
+    id_to_pos = inverse_ids(cols)
+    t0 = time.perf_counter()
+    expected_paper = run_requests(
+        dataset_from_numpy(paper_cols, SPEC.num_vertices, "cpu"),
+        paper_requests)
+    print(f"cpu reference: {len(paper_requests)} tuple and row-store "
+          f"requests in {time.perf_counter() - t0:.3f} s (host clock)")
 
     # DeepFM at Criteo width: random weights on the card from a seeded CUDA
     # generator, copied to the CPU for the port's CPU run; TF32 off
@@ -1825,7 +1996,7 @@ def main() -> None:
         by_path[label] = read_launches()
         check_path(label, reqs, got[label], want, by_path[label],
                    expected_launches(reqs, want, SPEC.num_vertices), levels,
-                   values)
+                   values, id_to_pos)
     peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
 
     # DeepFM serving, then the embedding_bag op as its users call it
@@ -1875,6 +2046,29 @@ def main() -> None:
         for name, n in line["launches"].items():
             by_path["batch"][name] += n
         print("batch: " + json.dumps(line))
+
+    # the paper's tuple-based and row-store engines: their table and its
+    # row table come to the card after the paths above, whose peak memory
+    # they leave as it was; the row table is built on the first row-store
+    # request
+    t_paper = time.perf_counter()
+    ds_paper = dataset_from_numpy(paper_cols, SPEC.num_vertices, DEVICE)
+    reset_launches()
+    got["paper"] = run_requests(ds_paper, paper_requests)
+    by_path["paper"] = read_launches()
+    check_path("paper", paper_requests, got["paper"], expected_paper,
+               by_path["paper"], expected_launches(
+                   paper_requests, expected_paper, SPEC.num_vertices),
+               levels, values, id_to_pos)
+    rows_pos, rows_level = widest_row_block(
+        got["paper"][VALUE_ENGINE_NAMES.index("rowstore")], id_to_pos,
+        CAPS.frontier, SPEC.num_edges)
+    lg["rows_case"] = late_gather_case([ds_paper.rows.data],
+                                       rows_pos.to(DEVICE), flush)
+    lg["rows_case"]["shape"] += f" level={rows_level} (rowstore root 0)"
+    print("late_gather rows case: " + json.dumps({**lg["rows_case"],
+                                                  "card": card}))
+    paper_s = time.perf_counter() - t_paper
     for name, entry in kernels.items():
         entry["launches"] = sum(n[name] for n in by_path.values())
         entry["launches_by_path"] = {p: n[name] for p, n in by_path.items()}
@@ -1927,6 +2121,12 @@ def main() -> None:
               f"overflow {bool(r.overflow)} warm latency {warm[req]:.3f} ms "
               f"(median of 3, host clock){dirs}")
     layouts_mb = {d: l.nbytes / 2 ** 20 for d, l in ds.pull_layouts.items()}
+    for req, r in zip(paper_requests, got["paper"]):
+        warm[req] = warm_latency_ms(lambda req=req: run_request(ds_paper,
+                                                                req))
+        print(f"request {req}: count {int(r.count)} depth {int(r.depth)} "
+              f"overflow {bool(r.overflow)} warm latency {warm[req]:.3f} ms "
+              f"(median of 3, host clock)")
     print(f"main path: {len(all_requests)} requests equal to the CPU run; "
           f"peak device memory {peak_mb:.1f} MiB, frontier_pull layouts "
           f"{json.dumps(layouts_mb)} MiB of it")
@@ -1934,6 +2134,7 @@ def main() -> None:
     # widest PRecursive request, the two weighted paths' root 0, and the
     # inbound aggregate_sum whose kernel rows are skewed (vertex 0 owns
     # 83,619 inbound edges)
+    measured = {}       # (payload columns, engine) -> Exp 1-3 numbers
     for req in [Request("precursive", "outbound", 0),
                 Request("precursive", "both", SPEC.num_vertices - 1),
                 *(Request(engine, "outbound", 0) for engine in DENSE_ENGINES),
@@ -1941,8 +2142,13 @@ def main() -> None:
                 Request("bitmap", "outbound", 0, "aggregate_sum"),
                 Request("bitmap", "inbound", SPEC.num_vertices - 1,
                         "aggregate_sum")]:
-        print("profile: " + json.dumps(profile_call(
-            str(req), lambda req=req: run_request(ds, req), warm[req])))
+        prof = profile_call(str(req), lambda req=req: run_request(ds, req),
+                            warm[req])
+        print("profile: " + json.dumps(prof))
+        if req == Request("precursive", "outbound", 0):
+            # PRecursive reads no weight, so its Exp 2-3 request is this
+            measured[SPEC.payload_cols, req.engine] = exp_numbers(warm[req],
+                                                                  prof)
 
     forced = forced_plans["diropt"](expand_fn=fe_ops.frontier_expand_fused,
                                     pull_fn=fp_ops.frontier_pull_fused)
@@ -1981,6 +2187,35 @@ def main() -> None:
         print("profile: " + json.dumps({**profile_call(
             f"batch {b}", batch_call, batch_lines[str(b)]["warm_ms"]),
             "card": card}))
+
+    t0 = time.perf_counter()
+    for req in paper_requests:
+        prof = profile_call(str(req), lambda req=req: run_request(ds_paper,
+                                                                  req),
+                            warm[req])
+        print("profile: " + json.dumps({**prof, "card": card}))
+        if (req.direction, req.root) == ("outbound", 0):
+            measured[SPEC.payload_cols, req.engine] = exp_numbers(warm[req],
+                                                                  prof)
+    profiles_s = time.perf_counter() - t0
+
+    # the paper's Exp 1-3; Exp 1 on the same tree with no payload column:
+    # make_edge_table draws the payload columns last, so that table is
+    # this one less them
+    spec0 = SPEC._replace(payload_cols=0)
+    ds0 = dataset_from_numpy({k: cols[k] for k in ("id", "from", "to",
+                                                   "name")},
+                             spec0.num_vertices, DEVICE)
+    for name, fig, engines, payload, baseline in EXPERIMENTS:
+        on = (ds0, spec0, levels, id_to_pos) if payload == 0 \
+            else (ds_paper, SPEC, levels, id_to_pos)
+        print(f"{name}: " + json.dumps(exp_line(
+            name, fig, engines, payload, baseline, *on, card, measured)))
+    del ds0, ds_paper
+    print(f"paper engines: {paper_s:.3f} s for their path and the rows "
+          f"case, {profiles_s:.3f} s for their warm and profile lines, "
+          f"{time.perf_counter() - t0 - profiles_s:.3f} s for Exp 1-3 "
+          f"(host clock)")
 
     fe.update(expand_profile(fe_call, flush))
     sp["profile"] = spmm_profile(sp_calls, flush)

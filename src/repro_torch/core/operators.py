@@ -2,16 +2,19 @@
 
 Every engine of the port is a :class:`Pipeline`: a seed operator, a tuple
 of per-level operators and a finisher, run by ONE :func:`fixed_point`
-driver.  The operators ported so far:
+driver.  The operators:
 
 ===================  ======================================================
-``Seed``             the non-recursive CTE child (Filter on the root, or
-                     the root bit of a dense bitmap / vertex-depth array)
+``Seed``             the non-recursive CTE child (Filter on the root, the
+                     root bit of a dense bitmap / vertex-depth array, or
+                     the row store's SeqScan over interleaved rows)
 ``ReadTargets``      per-level read of the join column out of the frontier
-                     positions (one column gather)
+                     (positions -> one column gather; tuples/rows -> free)
 ``VisitedDedup``     BFS vertex dedup (visited bitmap + scatter-argmin)
 ``CSRIndexJoin``     Fig. 4's IndexJoin: frontier vertices -> edge positions
                      through the CSR join index
+``ScanHashJoin``     Fig. 3's HashJoin as PostgreSQL runs it on a heap
+                     table: a full SeqScan probing the frontier hash
 ``DenseBitmapStep``  beyond-paper dense-frontier level (boolean SpMV push)
 ``PullStep``         its Beamer bottom-up dual over the reverse CSR
 ``DirectionSwitch``  per level, push or pull from exact work terms
@@ -22,9 +25,13 @@ driver.  The operators ported so far:
                      winner select and IndexJoin in one step
 ``WeightedDenseStep`` the dense weighted level: ⊗ over the edge list, one
                      ⊕-scatter into the (V,) level plane
+``EarlyMaterialize`` Fig. 3's per-level Materialize (tuple/row pipelines)
 ``AppendUnionAll``   the recursive UNION ALL: append the level block to the
                      working result, tagging each row with its BFS level
 ``LateMaterialize``  Fig. 4's single post-fixed-point Materialize
+``EmitTuples``       tuple finisher: the rows materialized level by level
+``ProjectRows``      row-store finisher: columns projected out of full rows
+``TopLevelJoin``     the Exp-3 rewrite: ONE top-level join on ``id``
 ``CompactEmitted``   dense finisher: emitted-edge mask -> positions -> one
                      late gather
 ``DeferredEmit``     the same, deriving the emitted mask from per-vertex
@@ -32,12 +39,22 @@ driver.  The operators ported so far:
 ===================  ======================================================
 
 Frontier representation per pipeline (``Pipeline.rep``): ``'pos'`` — a
-block of edge positions (PRecursive, hybrid); ``'dense'`` — a boolean
+block of edge positions (PRecursive, hybrid); ``'vals'`` — a block of
+materialized column values (TRecursive); ``'rows'`` — a block of full
+interleaved rows (the row-store emulation); ``'dense'`` — a boolean
 vertex bitmap (bitmap) or, with deferred emission, the per-vertex depth
-array (diropt).  State a pipeline does not use is a zero-size placeholder,
-as in the reference; the semiring value plane (``Pipeline.semiring`` other
-than ``'reach'``) adds a float32 frontier value and a (V,) per-vertex
-accumulator, zero-size for ``reach``, so the boolean paths are unchanged.
+array (diropt).  State a pipeline does not use is a zero-size placeholder
+(an empty dict for the value blocks), as in the reference; the semiring
+value plane (``Pipeline.semiring`` other than ``'reach'``) adds a float32
+frontier value and a (V,) per-vertex accumulator, zero-size for
+``reach``, so the boolean paths are unchanged.
+
+Positions contract: pipelines whose representation carries positions
+(``'pos'``/``'dense'``, and any pipeline finished by :class:`TopLevelJoin`)
+return real edge positions in ``BFSResult.positions``; pure tuple/row
+pipelines return all ``-1`` (``Pipeline.carries_positions``).  Every
+operator and finisher ``describe()``s itself; ``Pipeline.render`` draws
+the plan's Volcano tree from them.
 
 Direction: the join view (``ctx.join_src``/``ctx.join_dst`` and the CSR
 over ``join_src``) decides it.  ``outbound`` uses (from, to); ``inbound``
@@ -78,17 +95,18 @@ from .csr import CSRIndex, expand_frontier, expand_frontier_both, lane_take
 from .positions import PosBlock, append_block, compact_mask
 from .semiring import (elem_combine, get_semiring, or_combine, propagate,
                        scatter_combine)
-from .table import ColumnTable
+from .table import ColumnTable, RowTable
 
 __all__ = [
     "DIRECTIONS", "check_direction", "EngineCaps", "BFSResult", "Context",
     "HostCounts", "TraversalState", "Operator", "Seed", "ReadTargets",
-    "VisitedDedup", "CSRIndexJoin", "DenseBitmapStep", "PullStep",
-    "DirectionSwitch", "HybridStep", "HybridPullStep", "WeightedExpand",
-    "WeightedDenseStep", "AppendUnionAll",
-    "LateMaterialize", "CompactEmitted", "DeferredEmit", "Pipeline",
+    "VisitedDedup", "CSRIndexJoin", "ScanHashJoin", "DenseBitmapStep",
+    "PullStep", "DirectionSwitch", "HybridStep", "HybridPullStep",
+    "WeightedExpand", "WeightedDenseStep", "EarlyMaterialize",
+    "AppendUnionAll", "LateMaterialize", "EmitTuples", "ProjectRows",
+    "CompactEmitted", "DeferredEmit", "TopLevelJoin", "Pipeline",
     "fixed_point", "execute", "fixed_point_batch", "execute_batch",
-    "dedup_targets", "bitmap_level",
+    "dedup_targets", "bitmap_level", "append_values",
 ]
 
 DIRECTIONS = ("outbound", "inbound", "both")
@@ -135,9 +153,11 @@ class Context:
     real position order (shared by both orientations of the fused view);
     None for unweighted traffic, which traverses with all-ones.
     ``pull_layout`` is the ``frontier_pull`` kernel's reverse layout of
-    ``rcsr`` (None until the dataset builds it)."""
+    ``rcsr`` (None until the dataset builds it).  ``table`` is the column
+    table and ``rows`` the row table (the row-store emulation's storage);
+    either may be None where the pipeline reads only the other."""
 
-    table: ColumnTable
+    table: Optional[ColumnTable]
     csr: Optional[CSRIndex]
     join_src: torch.Tensor
     join_dst: torch.Tensor
@@ -146,6 +166,7 @@ class Context:
     bidir: bool = False
     edge_weights: Optional[torch.Tensor] = None
     pull_layout: Optional[PullLayout] = None
+    rows: Optional[RowTable] = None
 
 
 class HostCounts(NamedTuple):
@@ -153,11 +174,15 @@ class HostCounts(NamedTuple):
     per level in one transfer: the depth of the level, its live frontier
     entries and (switch pipelines only) the vertices discovered before
     it.  In a batch ``frontier`` and ``visited`` hold one int per lane
-    still in the loop, which all share ``depth``."""
+    still in the loop, which all share ``depth``.  ``appended`` (one root
+    only) is the rows appended to the working result so far, clamped to
+    its capacity: the frontier counts of the levels so far summed, this
+    one's included, which is where the value appends write."""
 
     depth: int = 0
     frontier: int | list[int] = 0
     visited: int | list[int] = 0
+    appended: int = 0
 
 
 class TraversalState(NamedTuple):
@@ -169,6 +194,8 @@ class TraversalState(NamedTuple):
     lane's own."""
 
     frontier_pos: torch.Tensor     # (F,) int32 join-space edge positions
+    frontier_vals: Dict[str, torch.Tensor]  # tuple rep: name -> (F, ...)
+    frontier_rows: torch.Tensor    # (F, W) float32 row-store rep
     frontier_count: torch.Tensor   # () int32 live frontier entries
     targets: torch.Tensor          # (F,) int32 target vertices
     keep: torch.Tensor             # (F,) bool survivors of dedup
@@ -177,6 +204,8 @@ class TraversalState(NamedTuple):
     emit_depth: torch.Tensor       # (EJ,) int32 level of first emission
     visited: torch.Tensor          # (V,) bool BFS visited set
     result_pos: torch.Tensor       # (R,) int32 real result positions
+    result_vals: Dict[str, torch.Tensor]  # tuple/row result buffers, name
+    #   -> (R + F, ...): F spare rows past R take the dropped entries
     result_depth: torch.Tensor     # (R,) int32 BFS level per result row
     result_count: torch.Tensor     # () int32
     depth: torch.Tensor            # () int32 levels executed
@@ -225,6 +254,40 @@ def dedup_targets(targets: torch.Tensor, valid: torch.Tensor,
     return keep, or_combine(visited, safe, keep)
 
 
+def append_values(bufs: Dict[str, torch.Tensor], count: torch.Tensor,
+                  vals: Dict[str, torch.Tensor], block_count: torch.Tensor,
+                  cap_r: int, offset: int
+                  ) -> tuple[Dict[str, torch.Tensor], torch.Tensor,
+                             torch.Tensor]:
+    """Append a value block into larger result buffers (the tuple/row-store
+    UNION ALL): the block's F rows go to slots ``count`` on, with its
+    padding (rows from ``block_count`` on) masked to 0; only the first
+    ``cap_r`` slots are results.  ``offset`` is ``count`` as the host knows
+    it (:class:`HostCounts`), so the block lands by one contiguous copy:
+    each buffer holds F spare rows past ``cap_r`` that take the rows past
+    it, which are dropped, and padding lands on slots past the new count,
+    which hold zeros.  The copy is in place (the buffers belong to the
+    run).  Returns (bufs, new_count, overflowed)."""
+    cap_f = next(iter(vals.values())).shape[0]
+    idx = torch.arange(cap_f, dtype=torch.int32, device=count.device)
+    live = (idx < block_count) & (idx < cap_r - offset)
+    for k, buf in bufs.items():
+        v = vals[k]
+        mask = live.reshape(live.shape + (1,) * (v.dim() - 1))
+        buf.narrow(0, offset, cap_f).copy_(torch.where(mask, v, 0))
+    new_count = (count + block_count).clamp(max=cap_r)
+    return bufs, new_count, (count + block_count) > cap_r
+
+
+def _num_real_rows(ctx: Context) -> int:
+    """Real edge count E: of the column table, else of the row table."""
+    if ctx.table is not None:
+        return ctx.table.num_rows
+    if ctx.rows is not None:
+        return ctx.rows.num_rows
+    return ctx.join_src.shape[0]
+
+
 def _num_join(ctx: Context) -> int:
     """Join-space edge count EJ (2E under the fused bidirectional view —
     virtual: no 2E array backs it)."""
@@ -238,7 +301,7 @@ def _to_real(ctx: Context, pos: torch.Tensor) -> torch.Tensor:
     p``) folds to ``p`` and the join-space sentinel ``2E`` to ``E``."""
     if not ctx.bidir:
         return pos
-    e = ctx.table.num_rows
+    e = _num_real_rows(ctx)
     return torch.where(pos < e, pos, pos - e)
 
 
@@ -499,6 +562,9 @@ class Operator:
     def step(self, ctx: Context, state: TraversalState) -> TraversalState:
         return state
 
+    def describe(self) -> str:
+        return type(self).__name__
+
 
 @dataclasses.dataclass(frozen=True)
 class Seed(Operator):
@@ -506,6 +572,9 @@ class Seed(Operator):
 
     kind='edges' — Filter[join_src = root] compacted to a position block;
     kind='dense' — the root bit in a dense vertex bitmap.
+    scan='rows' emulates the PostgreSQL SeqScan: the filter reads the
+    row table's ``label`` column, strided over the interleaved rows, cast
+    to int32.  ``label`` names the filter column in the plan.
     A deferred-emission pipeline (one that carries ``vertex_depth``) seeds
     the root's depth 0 instead of any bitmap.  ``mark_emitted`` seeds the
     emitted-edge mask of the positional pipelines that carry one.
@@ -514,6 +583,8 @@ class Seed(Operator):
     carries seed ⊗ weight."""
 
     kind: str = "edges"
+    scan: str = "columnar"
+    label: str = "from"
     mark_emitted: bool = False
     semiring: str = "reach"
 
@@ -575,7 +646,9 @@ class Seed(Operator):
         cap = state.frontier_pos.shape[-1]
         key = root if isinstance(root, int) else \
             torch.tensor(root, dtype=torch.int64, device=dev)[:, None]
-        blk = compact_mask(_seed_mask(ctx, key), cap, ej)
+        mask = (ctx.rows.column(self.label).to(torch.int32) == key
+                if self.scan == "rows" else _seed_mask(ctx, key))
+        blk = compact_mask(mask, cap, ej)
         state = state._replace(frontier_pos=blk.positions,
                                frontier_count=blk.count, visited=visited)
         if self.mark_emitted:
@@ -586,19 +659,43 @@ class Seed(Operator):
                 emit_depth=_set_drop(state.emit_depth, idx, 0))
         return state
 
+    def describe(self):
+        if self.scan == "rows":
+            return f"SeqScan[{self.label} = $root] -> full rows"
+        if self.kind == "dense":
+            return "SeedBitmap[$root]"
+        return f"Filter[{self.label} = $root] -> PosBlock"
+
 
 @dataclasses.dataclass(frozen=True)
 class ReadTargets(Operator):
-    """Per-level read of the join column out of the frontier positions: the
-    ONLY per-level value gather of the positional plan (one column)."""
+    """Per-level read of the join column out of the frontier.  For the
+    positional rep (``source='pos'``) this is the ONLY per-level value
+    gather (one column); the tuple (``'vals'``) and row (``'rows'``) reps
+    already paid for it at materialization time and read column ``col``
+    of the block, cast to int32."""
+
+    source: str = "pos"     # 'pos' | 'vals' | 'rows'
+    col: str = "to"
 
     def step(self, ctx, state):
         cap = state.targets.shape[-1]
         valid = torch.arange(cap, dtype=torch.int32,
                              device=state.targets.device) \
             < state.frontier_count[..., None]
-        t = _join_dst_at(ctx, state.frontier_pos)
+        if self.source == "pos":
+            t = _join_dst_at(ctx, state.frontier_pos)
+        elif self.source == "vals":
+            t = state.frontier_vals[self.col].to(torch.int32)
+        else:
+            t = state.frontier_rows[..., ctx.rows.slot(self.col)].to(
+                torch.int32)
         return state._replace(targets=torch.where(valid, t, -1), keep=valid)
+
+    def describe(self):
+        what = {"pos": "positions", "vals": "tuple block",
+                "rows": "row block"}[self.source]
+        return f"ReadCol[{self.col}]({what})"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -611,6 +708,9 @@ class VisitedDedup(Operator):
                                       state.visited)
         return state._replace(targets=torch.where(keep, state.targets, -1),
                               keep=keep, visited=visited)
+
+    def describe(self):
+        return "VisitedDedup[bitmap]"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -627,6 +727,34 @@ class CSRIndexJoin(Operator):
                                         self.expand_fn)
         return state._replace(frontier_pos=epos, frontier_count=total,
                               overflow=state.overflow | ovf)
+
+    def describe(self):
+        return "IndexJoin[CSR(join_src)](CTE, edges)"
+
+
+@dataclasses.dataclass(frozen=True)
+class ScanHashJoin(Operator):
+    """Fig. 3's HashJoin as PostgreSQL executes it without an index: build a
+    hash of the frontier's vertex set (an or-scatter), then SeqScan the
+    WHOLE row table's ``from`` column, strided over its rows, probing it
+    every level.  The hits compact into the next position block with no
+    host sync; more hits than the block holds set the overflow flag."""
+
+    def step(self, ctx, state):
+        nv = state.visited.shape[-1]
+        cap = state.frontier_pos.shape[-1]
+        probe = or_combine(torch.zeros_like(state.visited),
+                           state.targets.clamp(0, nv - 1), state.keep)
+        scan_from = ctx.rows.column("from").to(torch.int32)   # full scan
+        hit = probe[..., scan_from.clamp(0, nv - 1)] & (scan_from >= 0)
+        blk = compact_mask(hit, cap, ctx.rows.num_rows)
+        ovf = hit.sum(-1, dtype=torch.int32) > cap
+        return state._replace(frontier_pos=blk.positions,
+                              frontier_count=blk.count,
+                              overflow=state.overflow | ovf)
+
+    def describe(self):
+        return "HashJoin[from = cte.to](Hash(cte), SeqScan(edges))"
 
 
 def _record_deferred(state: TraversalState, new: torch.Tensor
@@ -680,6 +808,10 @@ class DenseBitmapStep(Operator):
             emit_depth=torch.where(new, state.depth, state.emit_depth),
             frontier_count=nxt.sum(-1, dtype=torch.int32))
 
+    def describe(self):
+        tag = ", deferred emit" if self.deferred else ""
+        return f"BitmapStep[push: frontier bits -> edge mask{tag}]"
+
 
 @dataclasses.dataclass(frozen=True)
 class PullStep(Operator):
@@ -712,6 +844,10 @@ class PullStep(Operator):
             emitted=state.emitted | hit,
             emit_depth=torch.where(new, state.depth, state.emit_depth),
             frontier_count=nxt.sum(-1, dtype=torch.int32))
+
+    def describe(self):
+        how = "kernel" if self.expand_fn is not None else "reverse CSR"
+        return f"PullStep[bottom-up: unvisited <- frontier bits ({how})]"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -769,6 +905,10 @@ class DirectionSwitch(Operator):
 
         return _lanes_split(state, self.use_pull(ctx, state), side(True),
                             side(False))
+
+    def describe(self):
+        return (f"DirectionSwitch[a={self.alpha:g} b={self.beta:g}: "
+                f"{self.push.describe()} | {self.pull.describe()}]")
 
 
 def _install_edge_frontier(ctx: Context, state: TraversalState,
@@ -837,6 +977,10 @@ class HybridStep(Operator):
         ovf = hit.sum(-1, dtype=torch.int32) > cap
         return _install_edge_frontier(ctx, state, nxt, visited, ovf)
 
+    def describe(self):
+        return (f"DirectionOpt[<{self.switch_frac:g}V: IndexJoin[CSR] | "
+                f"else BitmapStep]")
+
 
 @dataclasses.dataclass(frozen=True)
 class HybridPullStep(Operator):
@@ -866,6 +1010,9 @@ class HybridPullStep(Operator):
         ovf = hit.sum(-1, dtype=torch.int32) > cap
         return _install_edge_frontier(ctx, state, nxt, state.visited | tgt_v,
                                       ovf)
+
+    def describe(self):
+        return "PullStep[bottom-up over reverse CSR -> edge block]"
 
 
 def _level_plane(sr, nv: int, idx: torch.Tensor, vals: torch.Tensor
@@ -957,6 +1104,10 @@ class WeightedExpand(Operator):
                               targets=targets, keep=winner,
                               overflow=state.overflow | ovf)
 
+    def describe(self):
+        return (f"WeightedExpand[{self.semiring}: combine(+)=per-vertex, "
+                "winner -> IndexJoin[CSR(join_src)]]")
+
 
 @dataclasses.dataclass(frozen=True)
 class WeightedDenseStep(Operator):
@@ -1022,30 +1173,108 @@ class WeightedDenseStep(Operator):
             emit_depth=torch.where(new, state.depth, state.emit_depth),
             frontier_count=nxt.sum(dtype=torch.int32))
 
+    def describe(self):
+        how = ("spmm_segment kernel" if self.spmm_fn is not None
+               else "(+)-scatter")
+        return f"BitmapStep[weighted {self.semiring}: {how}]"
+
+
+@dataclasses.dataclass(frozen=True)
+class EarlyMaterialize(Operator):
+    """Fig. 3's per-level Materialize: turn the positional join output into
+    value tuples (or full interleaved rows) IMMEDIATELY — the (3+N) gathers
+    per level that the positional plan avoids.  Column mode is one
+    ``ColumnTable.take`` of ``cols``; row mode one ``RowTable.take_rows``.
+    ``with_next`` also carries the join-space next-vertex column
+    ``__next__`` (-1 on padding), which ``direction='both'`` needs once
+    positions fold to real edges.  ``init`` materializes the seed block."""
+
+    cols: Tuple[str, ...] = ()
+    rows: bool = False
+    with_next: bool = False
+
+    def init(self, ctx, state, root):
+        return self._materialize(ctx, state)
+
+    def step(self, ctx, state):
+        return self._materialize(ctx, state)
+
+    def _materialize(self, ctx, state):
+        pos_real = _to_real(ctx, state.frontier_pos)
+        if self.rows:
+            return state._replace(frontier_rows=ctx.rows.take_rows(pos_real))
+        vals = ctx.table.take(pos_real, self.cols)
+        if self.with_next:
+            valid = state.frontier_pos < _num_join(ctx)
+            vals["__next__"] = torch.where(
+                valid, _join_dst_at(ctx, state.frontier_pos), -1)
+        return state._replace(frontier_vals=vals)
+
+    def describe(self):
+        if self.rows:
+            return "Materialize[* full rows](heap read)"
+        return f"Materialize[{', '.join(self.cols)}](EVERY level)"
+
 
 @dataclasses.dataclass(frozen=True)
 class AppendUnionAll(Operator):
-    """The recursive UNION ALL over positions: append the level's block to
-    the working result, tagging every appended row with its BFS level.
-    ``init`` appends the seed block as level 0; ``step`` appends level
-    ``depth + 1``."""
+    """The recursive UNION ALL: append the level's block to the working
+    result, tagging every appended row with its BFS level.  ``rep`` is the
+    block appended: ``'pos'`` the real positions, ``'vals'`` the tuple
+    columns ``cols``, ``'rows'`` the full rows (one ``'rows'`` buffer).
+    The first value append allocates the result buffers in the values'
+    dtypes.  ``init`` appends the seed block as level ``depth`` unless
+    ``append_seed`` is off; ``step`` appends level ``depth +
+    step_tag_offset``."""
+
+    rep: str = "pos"            # 'pos' | 'vals' | 'rows'
+    cols: Tuple[str, ...] = ()  # result columns for rep='vals'
+    step_tag_offset: int = 1
+    append_seed: bool = True
 
     def init(self, ctx, state, root):
+        if not self.append_seed:
+            return state
         return self._append(ctx, state, state.depth)
 
     def step(self, ctx, state):
-        return self._append(ctx, state, state.depth + 1)
+        return self._append(ctx, state, state.depth + self.step_tag_offset)
 
     def _append(self, ctx, state, tag):
-        block = PosBlock(_to_real(ctx, state.frontier_pos),
-                         state.frontier_count)
-        rpos, rcount, ovf = append_block(state.result_pos,
-                                         state.result_count, block)
+        if self.rep == "pos":
+            block = PosBlock(_to_real(ctx, state.frontier_pos),
+                             state.frontier_count)
+            rpos, rcount, ovf = append_block(state.result_pos,
+                                             state.result_count, block)
+            rdepth = _tag_depths(state.result_depth, state.result_count,
+                                 block.capacity, block.count, tag)
+            return state._replace(result_pos=rpos, result_count=rcount,
+                                  result_depth=rdepth,
+                                  overflow=state.overflow | ovf)
+        if state.result_count.dim():
+            raise NotImplementedError("value appends run one root at a time")
+        if self.rep == "vals":
+            vals = {k: state.frontier_vals[k] for k in self.cols}
+        else:
+            vals = {"rows": state.frontier_rows}
+        cap_r = state.result_depth.shape[-1]
+        bufs = state.result_vals
+        if not bufs:     # the first append allocates the result buffers
+            bufs = {k: torch.zeros((cap_r + v.shape[0],) + v.shape[1:],
+                                   dtype=v.dtype, device=v.device)
+                    for k, v in vals.items()}
+        bufs, rcount, ovf = append_values(
+            bufs, state.result_count, vals, state.frontier_count, cap_r,
+            min(state.host.appended, cap_r))
+        block_cap = next(iter(vals.values())).shape[0]
         rdepth = _tag_depths(state.result_depth, state.result_count,
-                             block.capacity, block.count, tag)
-        return state._replace(result_pos=rpos, result_count=rcount,
+                             block_cap, state.frontier_count, tag)
+        return state._replace(result_vals=bufs, result_count=rcount,
                               result_depth=rdepth,
                               overflow=state.overflow | ovf)
+
+    def describe(self):
+        return "UnionAll[append working table]"
 
 
 def _drain_value_frontier(ctx: Context, pipeline: "Pipeline",
@@ -1079,6 +1308,101 @@ class LateMaterialize:
                          state.depth, state.overflow, state.result_depth,
                          vertex_values=vv)
 
+    def describe(self):
+        return (f"Materialize[{', '.join(self.cols)}]"
+                "  <- ONE late gather, after the fixed point")
+
+
+def _no_positions(state: TraversalState) -> torch.Tensor:
+    """The (R,) positions of a tuple or row pipeline: all -1."""
+    return torch.full(state.result_depth.shape, -1, dtype=torch.int32,
+                      device=state.result_depth.device)
+
+
+def _result_rows(state: TraversalState, name: str) -> torch.Tensor:
+    """Result buffer ``name`` without its spare rows."""
+    return state.result_vals[name][:state.result_depth.shape[-1]]
+
+
+@dataclasses.dataclass(frozen=True)
+class EmitTuples:
+    """Tuple-pipeline finisher: the result was materialized level by level;
+    positions are unavailable (all -1) — the Fig. 3 contract."""
+
+    cols: Tuple[str, ...]
+
+    def finish(self, ctx, pipeline, state):
+        values = {k: _result_rows(state, k) for k in self.cols}
+        return BFSResult(values, _no_positions(state), state.result_count,
+                         state.depth, state.overflow, state.result_depth)
+
+    def describe(self):
+        return f"Emit[{', '.join(self.cols)}](pre-materialized; positions=-1)"
+
+
+@dataclasses.dataclass(frozen=True)
+class ProjectRows:
+    """Row-store finisher: project the output columns (float32) back out of
+    the gathered full rows; positions are unavailable (all -1)."""
+
+    cols: Tuple[str, ...]
+
+    def finish(self, ctx, pipeline, state):
+        values = ctx.rows.project(_result_rows(state, "rows"), self.cols)
+        return BFSResult(values, _no_positions(state), state.result_count,
+                         state.depth, state.overflow, state.result_depth)
+
+    def describe(self):
+        return f"Project[{', '.join(self.cols)}](full rows)"
+
+
+@dataclasses.dataclass(frozen=True)
+class TopLevelJoin:
+    """The paper's Exp-3 rewriting: the recursion carried only (id, to); the
+    payload columns come back through ONE top-level hash join on ``id``,
+    realized as an inverse-permutation probe array built by a scatter.  On
+    the row store the probe reads the strided ``id`` column, cast to int32
+    and clipped into [0, E - 1], and the join re-gathers full rows — the
+    rewrite cannot rescue a heap table.  Its positions are real ones.
+
+    Where ids repeat, the reference's scatter keeps the last row; here an
+    ``amax`` scatter of the row numbers keeps the same one on every
+    device.  An id outside [-E, E) is dropped and one in [-E, 0) counts
+    from the end once, as a JAX ``.at[]`` does."""
+
+    cols: Tuple[str, ...]
+    inner: object
+    use_rows: bool = False
+
+    def finish(self, ctx, pipeline, state):
+        slim = self.inner.finish(ctx, pipeline, state)
+        if self.use_rows:
+            e = ctx.rows.num_rows
+            idx = ctx.rows.column("id").to(torch.int32).clamp(0, e - 1)
+        else:
+            e = ctx.table.num_rows
+            idx = ctx.table.column("id")
+            idx = torch.where(idx < 0, idx + e, idx)
+            idx = torch.where((idx >= 0) & (idx < e), idx, e)
+        probe = torch.zeros((e + 1,), dtype=torch.int32, device=idx.device)
+        probe.scatter_reduce_(0, idx.long(), torch.arange(
+            e, dtype=torch.int32, device=idx.device), "amax")
+        cap_r = slim.positions.shape[-1]
+        live = torch.arange(cap_r, dtype=torch.int32,
+                            device=idx.device) < slim.count
+        ids = torch.where(live, slim.values["id"].to(torch.int32), -1)
+        pos = torch.where(live, probe[ids.clamp(0, e - 1)], e)
+        if self.use_rows:
+            values = ctx.rows.project(ctx.rows.take_rows(pos), self.cols)
+        else:
+            values = ctx.table.take(pos, self.cols)
+        return BFSResult(values, pos, slim.count, slim.depth, slim.overflow,
+                         slim.row_depths, vertex_values=slim.vertex_values)
+
+    def describe(self):
+        return (f"HashJoin[id = cte.id](Hash(id -> pos), "
+                f"{self.inner.describe()})")
+
 
 @dataclasses.dataclass(frozen=True)
 class CompactEmitted:
@@ -1091,6 +1415,10 @@ class CompactEmitted:
     def finish(self, ctx, pipeline, state):
         return _emit(ctx, pipeline.caps.result, self.cols, state,
                      state.emitted, state.emit_depth)
+
+    def describe(self):
+        return (f"Materialize[{', '.join(self.cols)}](Compact(emitted mask))"
+                "  <- ONE late gather")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -1115,6 +1443,10 @@ class DeferredEmit:
         emitted = (src_depth >= 0) & (src_depth < state.depth[..., None])
         return _emit(ctx, pipeline.caps.result, self.cols, state, emitted,
                      src_depth)
+
+    def describe(self):
+        return (f"Materialize[{', '.join(self.cols)}]"
+                "(Compact(vertex depths -> emitted))  <- ONE deferred pass")
 
 
 def _emit(ctx: Context, cap_r: int, cols: Tuple[str, ...],
@@ -1151,13 +1483,28 @@ class Pipeline:
     finisher: object                 # LateMaterialize | CompactEmitted | ...
     caps: EngineCaps
     max_depth: int
-    rep: str = "pos"                 # 'pos' | 'dense'
+    rep: str = "pos"                 # 'pos' | 'vals' | 'rows' | 'dense'
     inclusive: bool = False          # loop while depth <= max_depth (dense)
     tracks_emitted: bool = False     # carries the (EJ,) emitted-edge mask
     tracks_vertex_depth: bool = False  # deferred emission: (V,) depths
     tracks_switch: bool = False      # records per-level push/pull decisions
     semiring: str = "reach"          # value-plane workload; 'reach' = the
     #   boolean BFS with zero-size value placeholders
+
+    @property
+    def carries_positions(self) -> bool:
+        """The positions contract: see the module docstring."""
+        return (self.rep in ("pos", "dense")
+                or isinstance(self.finisher, TopLevelJoin))
+
+    def render(self, root=0) -> str:
+        """The Volcano tree of the actual composition (Fig. 3/4 audit)."""
+        loop = "\n".join(f"    {op.describe()}" for op in self.ops)
+        seed = self.seed.describe().replace("$root", str(root))
+        return (f"{self.finisher.describe()}\n"
+                f"  {self.name}(maxrec={self.max_depth})\n"
+                f"    {seed}            (non-recursive child)\n"
+                f"{loop}")
 
 
 def _initial_state(pipeline: Pipeline, ctx: Context, num_vertices: int,
@@ -1197,8 +1544,12 @@ def _initial_state(pipeline: Pipeline, ctx: Context, num_vertices: int,
         emit_depth=full((ej,), -1) if track else none(),
         visited=(none(torch.bool) if deferred
                  else full((num_vertices,), False, torch.bool)),
-        result_pos=(full((cap_r,), ctx.table.num_rows)
+        frontier_vals={},
+        frontier_rows=torch.zeros(lead + (0, 0), dtype=torch.float32,
+                                  device=dev),
+        result_pos=(full((cap_r,), _num_real_rows(ctx))
                     if pipeline.rep == "pos" and not track else none()),
+        result_vals={},
         result_depth=none() if track or deferred else full((cap_r,), -1),
         result_count=zero,
         depth=zero if lanes is None else torch.zeros(
@@ -1243,11 +1594,13 @@ def fixed_point(pipeline: Pipeline, ctx: Context, root: int,
     for op in pipeline.ops:
         state = op.init(ctx, state, root)
     limit = pipeline.max_depth + (1 if pipeline.inclusive else 0)
+    appended = 0
     for depth in range(limit):
         host = _host_counts(pipeline, state, depth)
         if host.frontier <= 0:
             break
-        state = state._replace(host=host)
+        appended += host.frontier
+        state = state._replace(host=host._replace(appended=appended))
         for op in pipeline.ops:
             state = op.step(ctx, state)
         state = state._replace(depth=state.depth + 1)

@@ -2,8 +2,12 @@
 
 A ``ColumnTable`` is the port's PosDB table: a dict of equal-length tensors
 on one device, one per column.  Positions (row ids) index into every
-column.  The row-store emulation (``RowTable``) comes with the slice that
-ports the row-store engines.
+column.
+
+``RowTable`` is the row-store emulation used as the PostgreSQL baseline:
+all columns are interleaved into a single row-major ``(rows, width)``
+float32 tensor, so that touching *any* attribute of a row drags the full
+row through the memory system — the cost asymmetry the paper exploits.
 """
 from __future__ import annotations
 
@@ -16,7 +20,7 @@ import torch
 
 from ..kernels.late_gather.ops import late_gather_columns
 
-__all__ = ["ColumnTable", "payload_names"]
+__all__ = ["ColumnTable", "RowTable", "payload_names"]
 
 
 def payload_names(n: int) -> list[str]:
@@ -78,3 +82,76 @@ class ColumnTable:
              for col in cols], positions.reshape(-1))
         return {name: r.reshape(positions.shape + col.shape[1:])
                 for name, col, r in zip(names, cols, rows)}
+
+
+@dataclasses.dataclass(frozen=True)
+class RowTable:
+    """Row-store emulation: one interleaved row-major ``(rows, width)``
+    float32 tensor, contiguous, and the column name of each slot.
+
+    Every column is stored as float32 in the slot order of the column
+    table's sorted names; an (R, k) column becomes the slots ``name.0`` …
+    ``name.k-1``.  So int ids above 2^24 round, as in the reference.
+    Column access is a strided read over the rows (the row store's scan
+    cost); row gathers read the full width and then project, like a heap
+    page read."""
+
+    data: torch.Tensor                   # (rows, width) float32
+    layout: tuple[str, ...]              # column name per slot
+
+    @classmethod
+    def from_column_table(cls, table: ColumnTable) -> "RowTable":
+        layout = []
+        for name in table.names:
+            col = table.columns[name]
+            layout += ([name] if col.dim() == 1 else
+                       [f"{name}.{j}" for j in range(col.shape[1])])
+        data = torch.empty((table.num_rows, len(layout)),
+                           dtype=torch.float32, device=table.device)
+        slot = 0
+        for name in table.names:
+            col = table.columns[name].reshape(table.num_rows, -1)
+            data[:, slot:slot + col.shape[1]] = col
+            slot += col.shape[1]
+        return cls(data, tuple(layout))
+
+    @property
+    def num_rows(self) -> int:
+        return self.data.shape[0]
+
+    @property
+    def width(self) -> int:
+        return self.data.shape[1]
+
+    def slot(self, name: str) -> int:
+        return self.layout.index(name)
+
+    def column(self, name: str) -> torch.Tensor:
+        """Full-column read: a view strided over the rows (the row-store
+        scan cost)."""
+        return self.data[:, self.slot(name)]
+
+    def take_rows(self, positions: torch.Tensor) -> torch.Tensor:
+        """Gather whole rows (the heap-page read) at int32 ``positions``
+        of any shape, through one ``late_gather_columns`` call of the
+        (R, W) table: a position in [-R, 0) counts from the end once, and
+        the padding sentinel ``num_rows`` (or one below -R) gives a zero
+        row.  Returns ``positions.shape + (W,)``."""
+        rows = late_gather_columns([self.data], positions.reshape(-1))[0]
+        return rows.reshape(positions.shape + (self.width,))
+
+    def project(self, rows: torch.Tensor, names: Sequence[str]
+                ) -> Dict[str, torch.Tensor]:
+        """Project columns back out of gathered full rows; multi-slot
+        (vector) columns are reassembled from their interleaved slots."""
+        out = {}
+        for n in names:
+            if n in self.layout:
+                out[n] = rows[..., self.slot(n)]
+                continue
+            slots = [i for i, nm in enumerate(self.layout)
+                     if nm.startswith(n + ".")]
+            if not slots:
+                raise KeyError(n)
+            out[n] = rows[..., slots]
+        return out

@@ -56,7 +56,7 @@ from repro_torch.kernels.frontier_pull import (PULL_CASES, build_pull_layout,
                                                pull_case, pull_lanes_case)
 from repro_torch.kernels.frontier_pull import ops as fp_ops
 from repro_torch.kernels.frontier_pull.ref import frontier_pull_ref
-from repro_torch.core.table import ColumnTable
+from repro_torch.core.table import ColumnTable, RowTable
 from repro_torch.kernels.late_gather import late_gather_cuda
 from repro_torch.kernels.late_gather import ops as lg_ops
 from repro_torch.kernels.late_gather.ref import (late_gather_columns_ref,
@@ -858,3 +858,97 @@ def test_empty_table_raises_before_any_launch_on_card(cuda):
     none = torch.zeros((0,), dtype=torch.int32, device=cuda)
     assert lg_ops.late_gather(tab, none).shape == (0, 4)
     assert not eb_ops.embedding_bag(tab, none, none, 2).any()
+
+
+# ---------------------------------------------------------------------------
+# the row table's gather and the paper's tuple-based and row-store engines
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("width", [7, 47])
+def test_take_rows_kernel_matches_plain(cuda, width):
+    """``RowTable.take_rows`` through the kernel, bit-equal to its plain
+    version, at the row table's widths (no payload column, and 8): real
+    positions, the sentinel R, wrapped positions in [-R, 0), positions
+    below -R (a zero row) and none at all."""
+    rng = np.random.default_rng(width)
+    r = 3001
+    data = torch.from_numpy(rng.standard_normal((r, width)).astype(
+        np.float32))
+    table = RowTable(data.to(cuda), tuple(f"c{i}" for i in range(width)))
+    pos = rng.integers(0, r, 4096).astype(np.int32)
+    pos[::7] = r
+    pos[1::11] = -rng.integers(1, r + 1, pos[1::11].shape[0])
+    pos[2::13] = -r - 1 - rng.integers(0, 50, pos[2::13].shape[0])
+    for p in (pos, pos[:0], np.array([r, -r, r - 1], np.int32)):
+        before = lg_ops.LAUNCHES
+        got = table.take_rows(torch.from_numpy(p).to(cuda))
+        torch.cuda.synchronize()
+        want = late_gather_ref(data, torch.from_numpy(p))
+        assert got.shape == (p.shape[0], width)
+        assert torch.equal(got.cpu().view(torch.int32),
+                           want.view(torch.int32))
+        assert lg_ops.LAUNCHES - before == (1 if p.shape[0] else 0)
+
+
+def test_take_rows_of_empty_table_raises_on_card(cuda):
+    table = RowTable(torch.zeros((0, 7), device=cuda),
+                     tuple(f"c{i}" for i in range(7)))
+    before = lg_ops.LAUNCHES
+    with pytest.raises(IndexError):
+        table.take_rows(torch.zeros((3,), dtype=torch.int32, device=cuda))
+    assert table.take_rows(torch.zeros((0,), dtype=torch.int32,
+                                       device=cuda)).shape == (0, 7)
+    assert lg_ops.LAUNCHES == before
+
+
+def test_row_table_builds_on_card_as_on_cpu(cuda):
+    spec = TreeSpec(num_vertices=3000, height=10, payload_cols=2, seed=11)
+    cols = make_edge_table(spec)
+    on_card = dataset_from_numpy(cols, 3000, cuda)
+    on_card.ensure_rows()
+    on_cpu = dataset_from_numpy(cols, 3000, "cpu")
+    on_cpu.ensure_rows()
+    assert on_card.rows.layout == on_cpu.rows.layout
+    assert on_card.rows.data.is_contiguous()
+    assert torch.equal(on_card.rows.data.cpu(), on_cpu.rows.data)
+
+
+PAPER_CELLS = ([(e, d) for e in ("trecursive", "trecursive_rewrite")
+                for d in ("outbound", "inbound", "both")]
+               + [(e, "outbound") for e in ("rowstore", "rowstore_index",
+                                            "rowstore_rewrite",
+                                            "rowstore_index_rewrite")])
+
+
+@pytest.mark.parametrize("engine,direction", PAPER_CELLS)
+def test_paper_engines_on_card_match_cpu(cuda, engine, direction):
+    """The tuple-based and row-store engines on the card equal their CPU
+    runs bit for bit, every value column in its dtype (float32 on the row
+    store), and the IndexJoin engines run ``frontier_expand`` once a
+    level outside the fused ``both`` view."""
+    spec = TreeSpec(num_vertices=3000, height=10, payload_cols=2, seed=11)
+    cols = make_edge_table(spec)
+    ds, ds_cpu = (dataset_from_numpy(cols, 3000, d) for d in (cuda, "cpu"))
+    q = RecursiveQuery(engine, 10, 2, EngineCaps(4096, 8192),
+                       direction=direction)
+    for root in (0, 17, 2999):
+        before = fe_ops.LAUNCHES, lg_ops.LAUNCHES
+        got = run_query(q, ds, root)
+        torch.cuda.synchronize()
+        want = run_query(q, ds_cpu, root)
+        levels = int(want.depth)
+        index_join = engine in ("trecursive", "trecursive_rewrite",
+                                "rowstore_index", "rowstore_index_rewrite")
+        assert fe_ops.LAUNCHES - before[0] == (
+            levels if index_join and direction != "both" else 0)
+        assert lg_ops.LAUNCHES - before[1] == \
+            levels + 1 + engine.endswith("_rewrite")
+        for field in ("positions", "count", "depth", "overflow",
+                      "row_depths"):
+            g, w = getattr(got, field), getattr(want, field)
+            assert g.dtype == w.dtype and torch.equal(g.cpu(), w), \
+                (root, field)
+        assert sorted(got.values) == sorted(want.values)
+        for k in want.values:
+            g, w = got.values[k], want.values[k]
+            assert g.dtype == w.dtype and torch.equal(g.cpu(), w), (root, k)
