@@ -110,7 +110,25 @@ Phases (any failure raises and the script exits non-zero):
    oracle, then its warm ms (median of 3), busy ms, launches and idle
    share (the paper path's, where it ran the request), and its speedup
    against ``rowstore`` (Exp 1-2) or
-   ``rowstore_rewrite`` (Exp 3) in warm and busy ms;
+   ``rowstore_rewrite`` (Exp 3) in warm and busy ms; last, after every
+   earlier profile line (its host and device memory stay out of their
+   numbers), on the same table without the weight column: MS-BFS
+   (``run_query_multi``) over the 32-root serving bucket outbound,
+   inbound and both ways, every lane the same rows (positions,
+   count, depth, overflow, row depths, every column) as lane i of the
+   card's ``diropt`` batch over the same roots, root 0's lane equal to
+   the BFS oracle, the outbound call equal to the port's CPU run on every
+   field, ``late_gather`` launched once a call and no traversal kernel
+   (one ``multiquery:`` line a direction, with warm ms, busy ms and
+   launches beside the ``diropt`` batch's); per-lane depth caps
+   (``multiquery depth caps:``, each capped lane equal to ``diropt`` at
+   that depth); the bucket executor on one MS-BFS bucket at result cap
+   2^12, fallback caps (2^18, 2^20), evicting exactly the lanes over the
+   cap (``multiquery eviction:``, each evicted lane equal to ``diropt`` at
+   the fallback caps, the others keeping their rows); and
+   ``run_query_buckets`` of ``precursive`` over the 32 roots in four
+   buckets of 8, every root bit-equal to its single-root card run
+   (``buckets:``, beside one 32-root batch);
 5. print one ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}``
    line last.
 
@@ -123,6 +141,7 @@ import statistics
 import subprocess
 import sys
 import time
+import types
 from pathlib import Path
 from typing import NamedTuple
 
@@ -139,8 +158,10 @@ from repro_torch.core.csr import build_csr, expand_frontier  # noqa: E402
 from repro_torch.core.engine import (PUSH_COUNTERPART,  # noqa: E402
                                      VALUE_ENGINE_NAMES, EngineCaps,
                                      RecursiveQuery, build_plan,
+                                     dispatch_buckets, lane_eviction_count,
                                      positions_available, result_lane,
-                                     run_query, run_query_batch)
+                                     run_query, run_query_batch,
+                                     run_query_buckets, run_query_multi)
 from repro_torch.core.operators import execute  # noqa: E402
 from repro_torch.data.recsys_stream import (recsys_batch,  # noqa: E402
                                             vocab_sizes)
@@ -460,15 +481,18 @@ def require_equal(a, b, label: str, other: str = "the CPU run") -> None:
                 f"{label}: column {k} differs from {other}")
 
 
-def require_same_rows(a, b, label: str) -> None:
+def require_same_rows(a, b, label: str,
+                      other: str = "the push-only engine") -> None:
     """The rows, their order and depths, and the loop accounting of two
-    results (a direction-optimizing engine and its push-only twin)."""
+    results (a direction-optimizing engine and its push-only twin, or an
+    MS-BFS lane and ``diropt`` on its root)."""
     for field in ("positions", "count", "depth", "overflow", "row_depths"):
         require(torch.equal(getattr(a, field), getattr(b, field)),
-                f"{label}: field {field} differs from the push-only engine")
+                f"{label}: field {field} differs from {other}")
+    require(a.values.keys() == b.values.keys(), f"{label}: value columns")
     for k in a.values:
         require(torch.equal(a.values[k], b.values[k]),
-                f"{label}: column {k} differs from the push-only engine")
+                f"{label}: column {k} differs from {other}")
 
 
 def check_result_shape(r, caps: EngineCaps, label: str) -> None:
@@ -1756,6 +1780,216 @@ def run_batch(ds, b: Batch, levels: list, card: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# MS-BFS (run_query_multi) and the bucket executor
+# ---------------------------------------------------------------------------
+
+MQ_DEPTH_CAPS = {0: 2, 1: 5, 5: 2, 9: 5}   # lane -> its depth cap
+EVICT_RESULT_CAP = 1 << 12     # root 0's lane overflows it, leaf lanes not
+BUCKET_SPLIT = 4               # run_query_buckets: four buckets of 8
+
+
+def mq_query(direction: str = "outbound", caps: EngineCaps | None = None
+             ) -> RecursiveQuery:
+    return RecursiveQuery("multiquery", MAX_DEPTH, SPEC.payload_cols,
+                          caps or CAPS, direction=direction,
+                          lanes=BUCKET_ROOTS)
+
+
+def timed(label: str, fn, card: str) -> dict:
+    """Warm ms (host median of 3), then busy ms, launches, idle share and
+    the costliest device ops from one ``torch.profiler`` session of
+    ``fn``."""
+    warm = warm_latency_ms(fn)
+    prof = profile_call(label, fn, warm)
+    return {**exp_numbers(warm, prof), "top": prof["top"][:5],
+            "card": card}
+
+
+def run_multiquery(ds, ds_cpu, roots: list, direction: str, levels: list,
+                   card: str) -> tuple[dict, object, dict]:
+    """One ``run_query_multi`` over the serving bucket's roots, with the
+    counters zeroed just before and read just after (``late_gather`` once,
+    nothing else), every lane the same rows as lane i of the card's
+    ``diropt`` batch over the same roots, root 0's lane equal to the BFS
+    oracle, and (``ds_cpu`` given) the whole result equal to the port's
+    CPU run.  Returns the ``multiquery:`` line, the result and the
+    launches."""
+    q = mq_query(direction)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    got = run_query_multi(q, ds, roots)
+    launches = read_launches()
+    peak_mib = (torch.cuda.max_memory_allocated() - held) / 2 ** 20
+    require(launches == {**dict.fromkeys(KERNEL_OPS, 0), "late_gather": 1},
+            f"multiquery {direction}: launches {launches}, want one "
+            f"late_gather")
+    dq = query("diropt", direction)
+    batch = run_query_batch(dq, ds, roots)
+    check_result_shape(result_lane(got, 0), CAPS, f"multiquery {direction}")
+    for i, root in enumerate(roots):
+        label = f"multiquery {direction} lane {i} root {root}"
+        lane = result_lane(got, i)
+        require_same_rows(lane, result_lane(batch, i), label,
+                          "the diropt batch")
+        if direction == "outbound" and root == 0:
+            check_root0(lane, levels, SPEC, label)
+    cpu_s = None
+    if ds_cpu is not None:
+        t0 = time.perf_counter()
+        require_equal(got, run_query_multi(q, ds_cpu, roots),
+                      f"multiquery {direction}")
+        cpu_s = time.perf_counter() - t0
+    mq = timed(f"multiquery {direction} x{len(roots)}",
+               lambda: run_query_multi(q, ds, roots), card)
+    lockstep = timed(f"batch diropt {direction} x{len(roots)}",
+                     lambda: run_query_batch(dq, ds, roots), card)
+    line = {"direction": direction, "lanes": len(roots),
+            "levels": int(got.depth.max()),
+            "rows": int(got.count.sum()), **mq,
+            "busy_ms_per_root": mq["busy_ms"] / len(roots),
+            "peak_mib": peak_mib, "cpu_run_s": cpu_s,
+            "diropt_batch": {k: lockstep[k] for k in ("warm_ms", "busy_ms",
+                                                      "launches",
+                                                      "idle_share", "top")},
+            "busy_ratio_vs_diropt_batch": mq["busy_ms"] / lockstep["busy_ms"]}
+    return line, got, launches
+
+
+def run_multiquery_caps(ds, roots: list, full) -> dict:
+    """``run_query_multi`` with ``lane_limits`` capping the lanes of
+    MQ_DEPTH_CAPS: each capped lane equal to ``diropt`` at that
+    ``max_depth`` on the card, every other lane to the uncapped run."""
+    limits = [MQ_DEPTH_CAPS.get(i, MAX_DEPTH) for i in range(len(roots))]
+    reset_launches()
+    got = run_query_multi(mq_query(), ds, roots, limits)
+    launches = read_launches()
+    for i, root in enumerate(roots):
+        label = f"multiquery depth caps lane {i} root {root}"
+        if limits[i] < MAX_DEPTH:
+            want = run_query(RecursiveQuery("diropt", limits[i],
+                                            SPEC.payload_cols, CAPS), ds,
+                             root)
+            require_same_rows(result_lane(got, i), want, label,
+                              f"diropt at max_depth {limits[i]}")
+        else:
+            require_same_rows(result_lane(got, i), result_lane(full, i),
+                              label, "the uncapped run")
+    print("multiquery depth caps: " + json.dumps(
+        {"lane_caps": MQ_DEPTH_CAPS, "lane_depths": got.depth.tolist(),
+         "launches": launches}))
+    return launches
+
+
+def run_eviction(ds, roots: list, full) -> dict:
+    """``dispatch_buckets`` on one MS-BFS bucket of the roots at result cap
+    EVICT_RESULT_CAP, fallback CAPS: exactly the lanes whose rows exceed
+    the cap (root 0's among them) are evicted, each then equal to
+    ``diropt`` at the fallback caps, and every other lane keeps its
+    bucket-caps rows."""
+    small = EngineCaps(CAPS.frontier, EVICT_RESULT_CAP)
+    over = [c > EVICT_RESULT_CAP for c in full.count.tolist()]
+    require(over[0] and not all(over),
+            f"eviction: lanes over the cap {over}, want root 0's and not "
+            f"all")
+    bucket = types.SimpleNamespace(indices=tuple(range(len(roots))),
+                                   roots=tuple(roots), caps=small)
+
+    def dispatch(i, b, caps):
+        return run_query_multi(mq_query("outbound", caps), ds, list(b.roots))
+    before, timings = lane_eviction_count(), []
+    reset_launches()
+    out = dispatch_buckets([bucket], dispatch, fallback_caps=CAPS,
+                           observer=timings.append)
+    launches = read_launches()
+    evicted = lane_eviction_count() - before
+    require(evicted == sum(over) == timings[0].evicted_lanes
+            and not timings[0].retried,
+            f"eviction: {evicted} lanes evicted, {sum(over)} overflowed")
+    require(launches == {**dict.fromkeys(KERNEL_OPS, 0),
+                         "late_gather": 1 + evicted},
+            f"eviction: launches {launches}")
+    for i, root in enumerate(roots):
+        caps = CAPS if over[i] else small
+        want = run_query(RecursiveQuery("diropt", MAX_DEPTH,
+                                        SPEC.payload_cols, caps), ds, root)
+        require_same_rows(out[i], want, f"eviction lane {i} root {root}",
+                          f"diropt at caps {tuple(caps)}")
+    print("multiquery eviction: " + json.dumps(
+        {"result_cap": EVICT_RESULT_CAP, "fallback_caps": list(CAPS),
+         "evicted_lanes": [i for i, o in enumerate(over) if o],
+         "lane_eviction_count_delta": evicted, "launches": launches}))
+    return launches
+
+
+def run_buckets(ds, roots: list, card: str) -> tuple[dict, dict]:
+    """``run_query_buckets`` of ``precursive`` over the roots cut into
+    BUCKET_SPLIT buckets: every root's result bit-equal to its single-root
+    card run, ``late_gather`` once a bucket.  Returns the ``buckets:``
+    line (beside the one 32-root batch) and the launches."""
+    q = query("precursive")
+    size = len(roots) // BUCKET_SPLIT
+    buckets = [types.SimpleNamespace(indices=tuple(range(k, k + size)),
+                                     roots=tuple(roots[k:k + size]),
+                                     caps=CAPS)
+               for k in range(0, len(roots), size)]
+    reset_launches()
+    out = run_query_buckets(q, ds, buckets)
+    launches = read_launches()
+    require(launches["late_gather"] == len(buckets)
+            and launches["frontier_expand"] > 0
+            and launches["frontier_pull"] == launches["spmm_segment"]
+            == launches["embedding_bag"] == 0,
+            f"buckets: launches {launches}")
+    for i, root in enumerate(roots):
+        require_equal(out[i], run_query(q, ds, root),
+                      f"buckets root {root}", "the single-root card run")
+    line = {"engine": "precursive", "buckets": len(buckets),
+            "lanes": len(roots), "launches": launches,
+            **timed(f"buckets precursive {len(buckets)} x{size}",
+                    lambda: run_query_buckets(q, ds, buckets), card),
+            "one_batch": timed(f"batch precursive x{len(roots)}",
+                               lambda: run_query_batch(q, ds, roots),
+                               card)}
+    return line, launches
+
+
+def multiquery_phase(ds, cols: dict, levels: list, card: str,
+                     by_path: dict) -> None:
+    """MS-BFS over the serving bucket on ``ds`` (the card's dataset of
+    ``cols``), held against the diropt batch over the same roots and,
+    outbound, against the CPU run; then its per-lane depth caps, the
+    bucket executor's eviction of its overflowing lanes, and
+    ``run_query_buckets``; each call's counters zeroed just before it and
+    added to ``by_path`` (``multiquery``, ``buckets``)."""
+    t_mq = time.perf_counter()
+    ds_cpu = dataset_from_numpy(cols, SPEC.num_vertices, "cpu")
+    bucket_roots = list(make_batches(cols, SPEC.num_vertices)[-1].roots)
+    by_path["multiquery"] = dict.fromkeys(KERNEL_OPS, 0)
+    mq_full = None
+    for direction in ("outbound", "inbound", "both"):
+        line, got_mq, launches = run_multiquery(
+            ds, ds_cpu if direction == "outbound" else None,
+            bucket_roots, direction, levels, card)
+        print("multiquery: " + json.dumps(line))
+        for name, n in launches.items():
+            by_path["multiquery"][name] += n
+        if direction == "outbound":
+            mq_full = got_mq
+        del got_mq
+    for launches in (run_multiquery_caps(ds, bucket_roots, mq_full),
+                     run_eviction(ds, bucket_roots, mq_full)):
+        for name, n in launches.items():
+            by_path["multiquery"][name] += n
+    del mq_full
+    line, by_path["buckets"] = run_buckets(ds, bucket_roots, card)
+    print("buckets: " + json.dumps(line))
+    print(f"multiquery and buckets: {time.perf_counter() - t_mq:.3f} s "
+          f"(host clock)")
+
+
+# ---------------------------------------------------------------------------
 # the paper's tuple-based and row-store engines, and Exp 1-3
 # ---------------------------------------------------------------------------
 
@@ -2069,16 +2303,7 @@ def main() -> None:
     print("late_gather rows case: " + json.dumps({**lg["rows_case"],
                                                   "card": card}))
     paper_s = time.perf_counter() - t_paper
-    for name, entry in kernels.items():
-        entry["launches"] = sum(n[name] for n in by_path.values())
-        entry["launches_by_path"] = {p: n[name] for p, n in by_path.items()}
-        require(entry["launches"] > 0, f"{name} was never launched")
-    require(by_path["weighted"]["spmm_segment"] > 0,
-            "the weighted path never launched spmm_segment")
-    for path, n in by_path.items():
-        require((n["embedding_bag"] > 0) == (path == "bags"),
-                f"{path} path: embedding_bag launched {n['embedding_bag']} "
-                f"times")
+
     dense_got = dict(zip(dense_requests, got["dense"]))
     for req, r in dense_got.items():
         if req.engine in PUSH_COUNTERPART:
@@ -2211,7 +2436,7 @@ def main() -> None:
             else (ds_paper, SPEC, levels, id_to_pos)
         print(f"{name}: " + json.dumps(exp_line(
             name, fig, engines, payload, baseline, *on, card, measured)))
-    del ds0, ds_paper
+    del ds0
     print(f"paper engines: {paper_s:.3f} s for their path and the rows "
           f"case, {profiles_s:.3f} s for their warm and profile lines, "
           f"{time.perf_counter() - t0 - profiles_s:.3f} s for Exp 1-3 "
@@ -2238,6 +2463,20 @@ def main() -> None:
     print("frontier_expand lanes: " + json.dumps({**fe_lanes,
                                                   "card": card}))
     print("frontier_pull lanes: " + json.dumps({**fp_lanes, "card": card}))
+    # MS-BFS and the bucket executor last: their host and device memory
+    # stay out of every earlier path's numbers
+    multiquery_phase(ds_paper, paper_cols, levels, card, by_path)
+    del ds_paper
+    for name, entry in kernels.items():
+        entry["launches"] = sum(n[name] for n in by_path.values())
+        entry["launches_by_path"] = {p: n[name] for p, n in by_path.items()}
+        require(entry["launches"] > 0, f"{name} was never launched")
+    require(by_path["weighted"]["spmm_segment"] > 0,
+            "the weighted path never launched spmm_segment")
+    for path, n in by_path.items():
+        require((n["embedding_bag"] > 0) == (path == "bags"),
+                f"{path} path: embedding_bag launched {n['embedding_bag']} "
+                f"times")
     print(f"script: {time.perf_counter() - t_start:.3f} s from the build "
           f"on (host clock)")
     print(json.dumps({"kernels": list(kernels.values())}))

@@ -20,23 +20,27 @@ BFS, as operator-pipeline compositions run by the same
 IndexJoin, ``pull_fn`` the ``frontier_pull`` kernel wrapper into the pull
 steps and ``spmm_fn`` the ``spmm_segment`` kernel wrapper into the dense
 (sum, ×) combine; none changes a result beyond float summation order.
-The multi-query plan comes with its own slice.
+
+* ``multiquery`` — MultiQuerySeed → MultiQueryWordSweep, finished by
+  MultiQueryEmit: up to 32 roots as the bits of one word per vertex (MS-BFS),
+  run by :func:`~repro_torch.core.operators.execute_multiquery`.
 """
 from __future__ import annotations
 
 from typing import Callable, Optional
 
 from .csr import CSRIndex
-from .operators import (BFSResult, CompactEmitted, Context, DeferredEmit,
-                        DenseBitmapStep, DirectionSwitch, EngineCaps,
-                        HybridPullStep, HybridStep, Pipeline, PullStep, Seed,
-                        WeightedDenseStep, bitmap_level, check_direction,
-                        execute)
+from .operators import (WORD_LANES, BFSResult, CompactEmitted, Context,
+                        DeferredEmit, DenseBitmapStep, DirectionSwitch,
+                        EngineCaps, HybridPullStep, HybridStep,
+                        MultiQueryEmit, MultiQuerySeed, MultiQueryWordSweep,
+                        Pipeline, PullStep, Seed, WeightedDenseStep,
+                        bitmap_level, check_direction, execute)
 from .table import ColumnTable
 
 __all__ = ["bitmap_bfs", "hybrid_bfs", "bitmap_level", "bitmap_plan",
            "hybrid_plan", "diropt_plan", "diropt_hybrid_plan",
-           "weighted_bitmap_plan"]
+           "weighted_bitmap_plan", "multiquery_plan"]
 
 
 def bitmap_plan(caps: EngineCaps, max_depth: int,
@@ -133,6 +137,31 @@ def diropt_hybrid_plan(caps: EngineCaps, max_depth: int,
         finisher=CompactEmitted(tuple(out_cols)),
         caps=caps, max_depth=max_depth, tracks_emitted=True,
         tracks_switch=True)
+
+
+def multiquery_plan(caps: EngineCaps, max_depth: int,
+                    out_cols: tuple[str, ...], direction: str = "outbound",
+                    lanes: int = WORD_LANES) -> Pipeline:
+    """Bit-parallel multi-query BFS (MS-BFS): the dense frontier/visited
+    planes widen from boolean to a word whose bits are up to 32 concurrent
+    roots; ONE segment-OR sweep per level advances every lane at once,
+    with per-lane convergence freezing and per-lane depth caps.  Emission
+    is deferred per lane and row-for-row equal to the deferred-emission
+    engines; runs through
+    :func:`~repro_torch.core.operators.execute_multiquery`, not the scalar
+    driver."""
+    check_direction(direction)
+    lanes = int(lanes)
+    if not 1 <= lanes <= WORD_LANES:
+        raise ValueError(f"multiquery lanes must be in 1..{WORD_LANES}, "
+                         f"got {lanes}")
+    return Pipeline(
+        name="MultiQueryBFS", rep="dense",
+        seed=MultiQuerySeed(lanes=lanes),
+        ops=(MultiQueryWordSweep(lanes=lanes),),
+        finisher=MultiQueryEmit(tuple(out_cols), lanes=lanes),
+        caps=caps, max_depth=max_depth, inclusive=True,
+        tracks_vertex_depth=True)
 
 
 def bitmap_bfs(table: ColumnTable, num_vertices: int, root,

@@ -36,6 +36,10 @@ driver.  The operators:
                      late gather
 ``DeferredEmit``     the same, deriving the emitted mask from per-vertex
                      depths in one pass after the fixed point
+``MultiQuerySeed``   MS-BFS: each root's lane bit into one (V,) word
+``MultiQueryWordSweep`` one bit-parallel level for every lane: segment-OR
+                     of the in-neighbors' frontier words
+``MultiQueryEmit``   per-lane deferred emission from the level snapshots
 ===================  ======================================================
 
 Frontier representation per pipeline (``Pipeline.rep``): ``'pos'`` — a
@@ -76,6 +80,11 @@ end.  Where lanes take different branches (``HybridStep``'s sparse/dense,
 ``DirectionSwitch``'s push/pull) each side runs on its own group of lanes
 (:func:`_lanes_split`).
 
+Bit-parallel roots (:func:`multiquery_fixed_point`, MS-BFS): up to 32
+roots are the bits of one word per vertex, and one sweep a level advances
+them all; the result has the batch layout, lane ``i`` row-for-row equal
+to the deferred-emission engines on ``roots[i]``.
+
 Every gather clamps its indices and every dropping scatter routes dropped
 entries to a spare slot: torch on CUDA asserts where JAX clamps or drops.
 Public fields stay int32 (``level_dirs`` int8), as in the reference.
@@ -106,7 +115,9 @@ __all__ = [
     "AppendUnionAll", "LateMaterialize", "EmitTuples", "ProjectRows",
     "CompactEmitted", "DeferredEmit", "TopLevelJoin", "Pipeline",
     "fixed_point", "execute", "fixed_point_batch", "execute_batch",
-    "dedup_targets", "bitmap_level", "append_values",
+    "dedup_targets", "bitmap_level", "append_values", "WORD_LANES",
+    "MultiQueryState", "MultiQuerySeed", "MultiQueryWordSweep",
+    "MultiQueryEmit", "multiquery_fixed_point", "execute_multiquery",
 ]
 
 DIRECTIONS = ("outbound", "inbound", "both")
@@ -1413,8 +1424,8 @@ class CompactEmitted:
     cols: Tuple[str, ...]
 
     def finish(self, ctx, pipeline, state):
-        return _emit(ctx, pipeline.caps.result, self.cols, state,
-                     state.emitted, state.emit_depth)
+        return _emit(ctx, pipeline.caps.result, self.cols, state.emitted,
+                     state.emit_depth, *_state_tail(state))
 
     def describe(self):
         return (f"Materialize[{', '.join(self.cols)}](Compact(emitted mask))"
@@ -1433,25 +1444,46 @@ class DeferredEmit:
     cols: Tuple[str, ...]
 
     def finish(self, ctx, pipeline, state):
-        vd = state.vertex_depth
-        nv = vd.shape[-1]
-        src_depth = vd[..., ctx.join_src.clamp(0, nv - 1)]
-        if ctx.bidir:
-            src_depth = torch.cat([src_depth,
-                                   vd[..., ctx.join_dst.clamp(0, nv - 1)]],
-                                  -1)
-        emitted = (src_depth >= 0) & (src_depth < state.depth[..., None])
-        return _emit(ctx, pipeline.caps.result, self.cols, state, emitted,
-                     src_depth)
+        emitted, src_depth = _deferred_mask(ctx, state.vertex_depth,
+                                            state.depth)
+        return _emit(ctx, pipeline.caps.result, self.cols, emitted,
+                     src_depth, *_state_tail(state))
 
     def describe(self):
         return (f"Materialize[{', '.join(self.cols)}]"
                 "(Compact(vertex depths -> emitted))  <- ONE deferred pass")
 
 
+def _deferred_mask(ctx: Context, vertex_depth: torch.Tensor,
+                   depth: torch.Tensor
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Deferred emission: the (EJ,) emitted mask and per-edge level from
+    per-vertex BFS depths (-1 = undiscovered).  A join edge is emitted iff
+    its source vertex was discovered strictly before the last executed
+    level ``depth``; (L, V) depths with (L,) ``depth`` give (L, EJ)."""
+    nv = vertex_depth.shape[-1]
+    src_depth = vertex_depth[..., ctx.join_src.clamp(0, nv - 1)]
+    if ctx.bidir:
+        src_depth = torch.cat(
+            [src_depth, vertex_depth[..., ctx.join_dst.clamp(0, nv - 1)]],
+            -1)
+    return (src_depth >= 0) & (src_depth < depth[..., None]), src_depth
+
+
+def _state_tail(state: TraversalState) -> tuple:
+    """The result fields a finisher takes over from the loop state: depth,
+    overflow, and the switch decisions and value plane where the pipeline
+    has them."""
+    dirs = state.level_dirs if state.level_dirs.shape[-1] else None
+    vv = state.vertex_val if state.vertex_val.shape[-1] else None
+    return state.depth, state.overflow, dirs, vv
+
+
 def _emit(ctx: Context, cap_r: int, cols: Tuple[str, ...],
-          state: TraversalState, emitted: torch.Tensor,
-          edge_depth: torch.Tensor) -> BFSResult:
+          emitted: torch.Tensor, edge_depth: torch.Tensor,
+          depth: torch.Tensor, overflow: torch.Tensor,
+          dirs: Optional[torch.Tensor] = None,
+          vv: Optional[torch.Tensor] = None) -> BFSResult:
     """The dense finishers' shared tail: (EJ,) emitted mask and per-edge
     level -> compacted positions, one late gather, row depths (each lane
     compacted on its own, one gather for all lanes)."""
@@ -1459,13 +1491,11 @@ def _emit(ctx: Context, cap_r: int, cols: Tuple[str, ...],
     blk = compact_mask(emitted, cap_r, ej)
     pos_real = _to_real(ctx, blk.positions)
     values = ctx.table.take(pos_real, cols)
-    overflow = state.overflow | (emitted.sum(-1, dtype=torch.int32) > cap_r)
+    overflow = overflow | (emitted.sum(-1, dtype=torch.int32) > cap_r)
     row_depths = torch.where(
         blk.valid_mask(),
         lane_take(edge_depth, blk.positions.clamp(0, ej - 1)), -1)
-    dirs = state.level_dirs if state.level_dirs.shape[-1] else None
-    vv = state.vertex_val if state.vertex_val.shape[-1] else None
-    return BFSResult(values, pos_real, blk.count, state.depth, overflow,
+    return BFSResult(values, pos_real, blk.count, depth, overflow,
                      row_depths, dirs, vv)
 
 
@@ -1666,3 +1696,264 @@ def execute_batch(pipeline: Pipeline, ctx: Context, roots,
     """Batched multi-root execution (the reference's vmapped entry): every
     field of the result has a leading ``len(roots)`` lane axis."""
     return fixed_point_batch(pipeline, ctx, roots, num_vertices)
+
+
+# ---------------------------------------------------------------------------
+# bit-parallel multi-query traversal (MS-BFS)
+# ---------------------------------------------------------------------------
+
+# The dense engines carry (V,) boolean planes; the multiquery engine widens
+# the ELEMENT instead of adding a lane axis: one word per vertex packs up to
+# 32 concurrent roots, and a single dense sweep advances every lane at once
+# (Then et al., "The More the Merrier").  torch has few ops on uint32, and
+# an int32 word would put lane 31 in the sign bit, so the word is int64
+# with only bits 0-31 used.  No word leaves the driver: the result has the
+# batch layout of run_query_batch.
+_WORD_DTYPE = torch.int64
+WORD_LANES = 32
+
+
+class MultiQueryState(NamedTuple):
+    """The word-sweep loop state.  No (lanes, V) plane lives in the loop:
+    per-lane vertex depths are rebuilt AFTER the fixed point from the
+    per-level new-bits snapshots (``level_words[d]`` holds the word of
+    lanes that discovered each vertex at depth ``d``; bits are set at most
+    once per (lane, vertex), so the first set level IS the BFS depth).
+    The lane accounting lives on the host, read once a level."""
+
+    frontier_word: torch.Tensor     # (V,) int64: lane bits in the frontier
+    visited_word: torch.Tensor      # (V,) int64: lane bits ever discovered
+    level_words: list               # per executed level and the seed, the
+    #   (V,) int64 word of new bits
+    lane_depth: list                # levels executed per lane (host ints)
+    active: int                     # word of lanes still traversing (host)
+    depth: int                      # levels executed, max over lanes (host)
+
+
+def _lane_values(lanes: int, device) -> torch.Tensor:
+    """(lanes,) int32: each lane's bit as an int32 value (lane 31 is the
+    sign bit).  Disjoint bits sum with no overflow: the positive lanes
+    sum below 2^31 and the sign bit adds -2^31 once."""
+    return torch.tensor([(1 << lane) if lane < 31 else -(1 << 31)
+                         for lane in range(lanes)], dtype=torch.int32,
+                        device=device)
+
+
+def _unpack(words: torch.Tensor, lanes: int) -> torch.Tensor:
+    """Per-lane bit planes of ``words``: (..., lanes) int32 of 0/1.  The
+    int32 view of a word keeps bits 0-31; ``& 1`` drops what an arithmetic
+    shift of the sign bit brings in."""
+    shifts = torch.arange(lanes, dtype=torch.int32, device=words.device)
+    return (words.to(torch.int32)[..., None] >> shifts) & 1
+
+
+def _pack(planes: torch.Tensor) -> torch.Tensor:
+    """The inverse of :func:`_unpack`: (..., lanes) 0/1 planes -> (...,)
+    int64 words.  The bits are disjoint, so their sum is their OR."""
+    vals = _lane_values(planes.shape[-1], planes.device)
+    return (planes * vals).sum(-1) & ((1 << WORD_LANES) - 1)
+
+
+def _segment_or(words: torch.Tensor, indptr: torch.Tensor, num_seg: int,
+                lanes: int = WORD_LANES) -> torch.Tensor:
+    """Per-segment bitwise OR of ``words`` (grouped by segment, boundaries
+    in ``indptr``).  torch scatters have no OR mode, so the words are
+    unpacked into per-lane bit planes, each plane takes its per-segment
+    max (one ``scatter_reduce_``), and the planes are packed back.  OR is
+    associative, commutative and idempotent, so this equals the
+    reference's segmented scan bit for bit, in any order of the adds.
+    Words past ``indptr[-1]`` belong to no segment and are dropped."""
+    e = words.shape[0]
+    if e == 0:
+        return torch.zeros((num_seg,), dtype=words.dtype,
+                           device=words.device)
+    pos = torch.arange(e, dtype=indptr.dtype, device=words.device)
+    seg = torch.searchsorted(indptr[1:].contiguous(), pos, right=True)
+    planes = _unpack(words, lanes)
+    out = torch.zeros((num_seg + 1, lanes), dtype=torch.int32,
+                      device=words.device)
+    out.scatter_reduce_(0, seg[:, None].expand(e, lanes), planes, "amax")
+    return _pack(out[:num_seg])
+
+
+def _word_gather(ctx: Context, frontier_word: torch.Tensor, nv: int,
+                 lanes: int = WORD_LANES) -> torch.Tensor:
+    """One packed-word level: for every vertex, the OR of its in-neighbors'
+    frontier words (the MS-BFS analogue of :func:`_dense_pull`'s membership
+    test, over every lane at once).  Needs dst-grouped edge orders:
+    ``ctx.rcsr`` groups the join edges by ``join_dst`` in every direction
+    view; the fused bidirectional view adds the backward orientation
+    (grouped by ``join_src``) through ``ctx.csr``."""
+    src = ctx.join_src.clamp(0, nv - 1)
+    dst = ctx.join_dst.clamp(0, nv - 1)
+    if ctx.bidir:
+        fwd = _segment_or(frontier_word[src[ctx.rcsr.perm.long()]],
+                          ctx.rcsr.indptr, nv, lanes)
+        bwd = _segment_or(frontier_word[dst[ctx.csr.perm.long()]],
+                          ctx.csr.indptr, nv, lanes)
+        return fwd | bwd
+    if ctx.rcsr is None:
+        raise ValueError(
+            "the multiquery word sweep needs dst-grouped edges (the "
+            "reverse CSR); call Dataset.ensure_reverse() before dispatch")
+    return _segment_or(frontier_word[src[ctx.rcsr.perm.long()]],
+                       ctx.rcsr.indptr, nv, lanes)
+
+
+def _or_reduce(words: torch.Tensor) -> int:
+    """The OR of every word, on the host: halves folded onto each other on
+    the device, then one read."""
+    n = words.shape[0]
+    if n == 0:
+        return 0
+    size = 1 << (n - 1).bit_length()
+    if size != n:
+        words = torch.cat([words, words.new_zeros(size - n)])
+    while size > 1:
+        size //= 2
+        words = words[:size] | words[size:]
+    return int(words[0])
+
+
+@dataclasses.dataclass(frozen=True)
+class MultiQuerySeed(Operator):
+    """Scatter each root's lane bit into the packed frontier/visited words
+    (lane bits are distinct, so a scatter-ADD of colliding roots IS the
+    OR).  ``kind='dense'`` so the cost model prices levels with the dense
+    engines' vertex-frontier accounting."""
+
+    lanes: int = WORD_LANES
+    kind: str = "dense"
+
+    def describe(self):
+        return f"MultiQuerySeed[{self.lanes} lane bits -> (V,) word]"
+
+
+@dataclasses.dataclass(frozen=True)
+class MultiQueryWordSweep(Operator):
+    """One bit-parallel level: gather every in-neighbor's frontier word,
+    segment-OR by destination, mask by ``~visited`` and the active-lane
+    word.  Per-level work does not grow with the lanes the word holds,
+    where the lane-axis batch pays its per-level planes once per lane."""
+
+    lanes: int = WORD_LANES
+
+    def describe(self):
+        return (f"MultiQueryWordSweep[{self.lanes} lanes/word: "
+                "segment-OR pull, per-lane freeze]")
+
+
+@dataclasses.dataclass(frozen=True)
+class MultiQueryEmit:
+    """Per-lane deferred emission: rebuild each lane's (V,) vertex depths
+    from the level snapshots, then derive/compact/materialize the emitted
+    edge set exactly like :class:`DeferredEmit`: lane ``l`` of the result
+    is row-for-row identical (rows, order, ``row_depths``) to the
+    deferred-emission engines on ``roots[l]``."""
+
+    cols: Tuple[str, ...]
+    lanes: int = WORD_LANES
+
+    def finish(self, ctx, pipeline, state):
+        raise NotImplementedError(
+            "multiquery pipelines run through execute_multiquery, not the "
+            "scalar fixed_point driver")
+
+    def describe(self):
+        return (f"Materialize[{', '.join(self.cols)}]"
+                f"(Compact(lane depths -> emitted)) x{self.lanes} lanes")
+
+
+def _multiquery_finish(ctx: Context, pipeline: Pipeline,
+                       state: MultiQueryState, lanes: int,
+                       nv: int) -> BFSResult:
+    """All-lanes deferred emission in ONE batched pass: each lane's (V,)
+    vertex depths (the first level whose word holds the lane's bit, else
+    -1) go through the tail of :class:`DeferredEmit`, which compacts each
+    lane of the (L, EJ) emitted mask on its own and gathers every lane's
+    values in one ``ColumnTable.take``.  This gives the reference's
+    emitted set, ascending positions with the join-space sentinel in the
+    padding, ``count``, ``row_depths`` and ``overflow`` (total > cap), as
+    its docstring states; ``level_dirs`` and ``vertex_values`` are None."""
+    dev = state.frontier_word.device
+    vertex_depth = torch.full((lanes, nv), -1, dtype=torch.int32, device=dev)
+    for d, word in enumerate(state.level_words):
+        vertex_depth.masked_fill_(_unpack(word, lanes).T.bool(), d)
+    lane_depth = torch.tensor(state.lane_depth, dtype=torch.int32,
+                              device=dev)
+    emitted, src_depth = _deferred_mask(ctx, vertex_depth, lane_depth)
+    return _emit(ctx, pipeline.caps.result, pipeline.finisher.cols, emitted,
+                 src_depth, lane_depth,
+                 torch.zeros((lanes,), dtype=torch.bool, device=dev))
+
+
+def multiquery_fixed_point(pipeline: Pipeline, ctx: Context, roots,
+                           num_vertices: int, lane_limits) -> BFSResult:
+    """The MS-BFS driver: one host loop advances up to 32 packed lanes per
+    level, reading the host once a level (the OR of the level's new bits).
+
+    Per-lane convergence freezing and depth caps live in the ``active``
+    word: a lane leaves it when its frontier bits die or its depth cap
+    binds, its bits stop propagating, and its executed-level counter
+    freezes, so lane ``l`` of the result is row-identical to the scalar
+    driver on ``roots[l]`` with ``max_depth=lane_limits[l]``.  Roots are
+    clipped into [0, V - 1]; ``lane_limits`` are clamped to the query's
+    ``max_depth``."""
+    nv = num_vertices
+    roots = [int(r) for r in torch.as_tensor(roots).reshape(-1).tolist()]
+    lanes = len(roots)
+    if lanes > WORD_LANES:
+        raise ValueError(f"multiquery packs at most {WORD_LANES} roots per "
+                         f"32-bit word, got {lanes}")
+    limits = torch.as_tensor(lane_limits).reshape(-1).tolist()
+    if len(limits) == 1:
+        limits = limits * lanes
+    if len(limits) != lanes:
+        raise ValueError(f"{len(limits)} lane limits for {lanes} roots")
+    dev = ctx.join_src.device
+    bonus = 1 if pipeline.inclusive else 0
+    limit = pipeline.max_depth + bonus
+    lane_limit = [min(int(x), pipeline.max_depth) + bonus for x in limits]
+    # distinct bits per lane: scatter-ADD of colliding roots == OR
+    root_word = torch.zeros((nv,), dtype=_WORD_DTYPE, device=dev).index_add_(
+        0, torch.tensor([min(max(r, 0), nv - 1) for r in roots],
+                        dtype=torch.int64, device=dev),
+        torch.tensor([1 << lane for lane in range(lanes)],
+                     dtype=_WORD_DTYPE, device=dev))
+    state = MultiQueryState(
+        frontier_word=root_word, visited_word=root_word,
+        level_words=[root_word], lane_depth=[0] * lanes,
+        active=sum(1 << lane for lane in range(lanes)
+                   if lane_limit[lane] > 0),
+        depth=0)
+    while state.active and state.depth < limit:
+        active = state.active
+        gathered = _word_gather(ctx, state.frontier_word, nv, lanes)
+        new = gathered & ~state.visited_word & active
+        # lanes in the active word executed this level
+        lane_depth = [d + (active >> lane & 1)
+                      for lane, d in enumerate(state.lane_depth)]
+        # freeze: frontier died (no new bits anywhere) or depth cap bound
+        alive = _or_reduce(new)
+        within = sum(1 << lane for lane, d in enumerate(lane_depth)
+                     if d < lane_limit[lane])
+        state = MultiQueryState(
+            frontier_word=new, visited_word=state.visited_word | new,
+            level_words=state.level_words + [new], lane_depth=lane_depth,
+            active=active & alive & within, depth=state.depth + 1)
+    return _multiquery_finish(ctx, pipeline, state, lanes, nv)
+
+
+def execute_multiquery(pipeline: Pipeline, ctx: Context, roots,
+                       num_vertices: int, lane_limits=None) -> BFSResult:
+    """Bit-parallel multi-root execution: ONE dense word sweep a level
+    answers up to 32 roots.  Returns a BFSResult with a leading
+    ``len(roots)`` lane axis, row-for-row equal per lane to the
+    deferred-emission engines.  ``lane_limits`` (optional, one int per
+    lane) caps each lane's executed depth; ``None`` means every lane runs
+    to the query's ``max_depth``."""
+    if lane_limits is None:
+        lane_limits = [pipeline.max_depth] * len(
+            torch.as_tensor(roots).reshape(-1))
+    return multiquery_fixed_point(pipeline, ctx, roots, num_vertices,
+                                  lane_limits)

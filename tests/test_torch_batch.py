@@ -38,6 +38,7 @@ from repro_torch.kernels.frontier_pull import (PULL_CASES, build_pull_layout,
 from repro_torch.kernels.frontier_pull import ops as fp_ops
 from test_torch_engine import (DIRECTIONS, assert_same_result, both_datasets,
                                port_query)
+from test_torch_engine import release_reference_executables  # noqa: F401
 
 V = 48
 LEAF, CHAIN = 37, 40

@@ -26,6 +26,9 @@ every integer field and value column, and in ``vertex_values`` exactly for
 min and max semirings, within ``rtol = 1e-5, atol = 1e-6`` for sum and
 product (the CPU and the card scatter in different orders).
 """
+import dataclasses
+import types
+
 import numpy as np
 import pytest
 
@@ -33,8 +36,10 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.convert import dataset_from_numpy
 from repro_torch.core.csr import build_csr, expand_frontier
-from repro_torch.core.engine import (EngineCaps, RecursiveQuery, result_lane,
-                                    run_query, run_query_batch)
+from repro_torch.core.engine import (EngineCaps, RecursiveQuery,
+                                     dispatch_buckets, lane_eviction_count,
+                                     result_lane, run_query, run_query_batch,
+                                     run_query_multi)
 from repro_torch.data.treegen import TreeSpec, make_edge_table
 from repro_torch.configs.deepfm import SMOKE
 from repro_torch.data.recsys_stream import recsys_batch, vocab_sizes
@@ -952,3 +957,72 @@ def test_paper_engines_on_card_match_cpu(cuda, engine, direction):
         for k in want.values:
             g, w = got.values[k], want.values[k]
             assert g.dtype == w.dtype and torch.equal(g.cpu(), w), (root, k)
+
+
+MULTI_ROOTS = [0, 1, 17, 2999, -2, 3003, 0, 42]
+
+
+@pytest.mark.parametrize("direction", ["outbound", "inbound", "both"])
+def test_run_query_multi_on_card_matches_cpu(cuda, direction):
+    """MS-BFS on the card equals the CPU run on every field, each lane
+    equals the card's ``diropt`` on its root, and the call launches
+    ``late_gather`` once (the take of every lane's rows) and no traversal
+    kernel (the word sweep is plain PyTorch)."""
+    spec = TreeSpec(num_vertices=3000, height=10, payload_cols=2, seed=11)
+    cols = make_edge_table(spec)
+    ds, ds_cpu = (dataset_from_numpy(cols, 3000, d) for d in (cuda, "cpu"))
+    q = RecursiveQuery("multiquery", 10, 2, EngineCaps(4096, 8192),
+                       direction=direction)
+    run_query_multi(q, ds, MULTI_ROOTS)
+    torch.cuda.synchronize()
+    before = fe_ops.LAUNCHES, fp_ops.LAUNCHES, lg_ops.LAUNCHES
+    got = run_query_multi(q, ds, MULTI_ROOTS)
+    torch.cuda.synchronize()
+    assert (fe_ops.LAUNCHES - before[0], fp_ops.LAUNCHES - before[1],
+            lg_ops.LAUNCHES - before[2]) == (0, 0, 1)
+    want = run_query_multi(q, ds_cpu, MULTI_ROOTS)
+    for field in ("positions", "count", "depth", "overflow", "row_depths"):
+        g, w = getattr(got, field), getattr(want, field)
+        assert g.dtype == w.dtype and torch.equal(g.cpu(), w), field
+    assert got.level_dirs is None and got.vertex_values is None
+    for k in want.values:
+        assert torch.equal(got.values[k].cpu(), want.values[k]), k
+    dq = RecursiveQuery("diropt", 10, 2, EngineCaps(4096, 8192),
+                        direction=direction)
+    for i, root in enumerate(MULTI_ROOTS):
+        lane, one = result_lane(got, i), run_query(dq, ds, root)
+        for field in ("positions", "count", "depth", "overflow",
+                      "row_depths"):
+            assert torch.equal(getattr(lane, field), getattr(one, field)), \
+                (root, field)
+
+
+def test_msbfs_eviction_on_card(cuda):
+    """The bucket executor on the card: only the MS-BFS lane that
+    overflows its bucket's result cap is evicted, and it equals the card's
+    ``diropt`` at the fallback caps; the other lanes keep their rows."""
+    spec = TreeSpec(num_vertices=3000, height=10, payload_cols=2, seed=11)
+    ds = dataset_from_numpy(make_edge_table(spec), 3000, cuda)
+    small, fallback = EngineCaps(4096, 64), EngineCaps(4096, 8192)
+    q = RecursiveQuery("multiquery", 10, 2, small)
+    roots = (0, 2999, 17, 1)
+    lanes = run_query_multi(q, ds, roots).overflow.tolist()
+    assert lanes[0] and not all(lanes)
+
+    bucket = types.SimpleNamespace(indices=(0, 1, 2, 3), roots=roots,
+                                   caps=small)
+
+    def dispatch(i, b, caps):
+        return run_query_multi(dataclasses.replace(q, caps=caps), ds,
+                               list(b.roots))
+    before = lane_eviction_count()
+    out = dispatch_buckets([bucket], dispatch, fallback_caps=fallback)
+    assert lane_eviction_count() - before == sum(lanes)
+    for i, root in enumerate(roots):
+        caps = fallback if lanes[i] else small
+        one = run_query(RecursiveQuery("diropt", 10, 2, caps), ds, root)
+        assert out[i].count.is_cuda
+        for field in ("positions", "count", "depth", "overflow",
+                      "row_depths"):
+            assert torch.equal(getattr(out[i], field), getattr(one, field)), \
+                (root, field)

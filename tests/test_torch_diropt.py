@@ -28,6 +28,7 @@ from repro_torch.kernels.frontier_expand import ops as fe_ops
 from repro_torch.kernels.frontier_pull import ops as fp_ops
 from test_torch_engine import (DIRECTIONS, GOLDEN, GRAPHS, assert_same_result,
                                both_datasets, graph_columns, port_query)
+from test_torch_engine import release_reference_executables  # noqa: F401
 
 DENSE_ENGINES = ("bitmap", "hybrid", "diropt", "diropt_hybrid")
 FORCE_PULL = dict(alpha=1e9, beta=1e9)

@@ -40,6 +40,7 @@ from repro_torch.kernels.embedding_bag.ref import (BAG_LAYOUT_CASES,
                                                    bag_layout_case,
                                                    layout_table)
 from repro_torch.kernels.spmm_segment.ops import segments
+from test_torch_engine import release_reference_executables  # noqa: F401
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 R, I, B = 40, 70, 9

@@ -21,6 +21,7 @@ from repro_torch.core.csr import expand_frontier as port_expand_frontier
 from repro_torch.kernels.frontier_expand import \
     frontier_expand_fused as port_frontier_expand_fused
 from repro_torch.kernels.frontier_expand import EXPAND_CASES, expand_case
+from test_torch_engine import release_reference_executables  # noqa: F401
 
 # one edge count and frontier size for every seed, and capacities from a
 # short list, so the interpret-mode Pallas kernel compiles a few times only

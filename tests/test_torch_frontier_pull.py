@@ -28,6 +28,7 @@ from repro_torch.kernels.frontier_pull import \
     frontier_pull_ref as port_frontier_pull_ref
 from repro_torch.kernels.frontier_pull.layout import HUB_TILE, SHORT_ROW
 from repro_torch.kernels.frontier_pull.ref import HUB, NO_HIT, TILE_ROWS
+from test_torch_engine import release_reference_executables  # noqa: F401
 
 # one vertex and edge count for the random cases, so the interpret-mode
 # Pallas kernel compiles once

@@ -24,6 +24,7 @@ from repro_torch.kernels.late_gather import late_gather as port_late_gather
 from repro_torch.kernels.late_gather import late_gather_columns
 from repro_torch.kernels.late_gather.ref import \
     late_gather_ref as port_late_gather_ref
+from test_torch_engine import release_reference_executables  # noqa: F401
 
 DTYPES = {"float32": (jnp.float32, torch.float32, np.uint32),
           "bfloat16": (jnp.bfloat16, torch.bfloat16, np.uint16),

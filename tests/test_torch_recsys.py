@@ -36,6 +36,7 @@ from repro_torch.data import recsys_stream as port_stream
 from repro_torch.kernels.embedding_bag import ops as eb_ops
 from repro_torch.kernels.late_gather import ops as lg_ops
 from repro_torch.models import recsys as port
+from test_torch_engine import release_reference_executables  # noqa: F401
 
 TOL = dict(rtol=2e-5, atol=2e-5)
 SMOKE_VOCABS = ref_stream.vocab_sizes(1e-4)

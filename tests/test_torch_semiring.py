@@ -30,6 +30,7 @@ from repro_torch.core import semiring as port_sr
 from repro_torch.core.operators import execute as port_execute
 from repro_torch.kernels.spmm_segment import ops as spmm_ops
 from test_torch_engine import assert_same_result
+from test_torch_engine import release_reference_executables  # noqa: F401
 
 SEMIRINGS = tuple(ref_sr.SEMIRINGS)
 EXACT = ("shortest_path", "aggregate_max", "aggregate_min")

@@ -31,6 +31,7 @@ from repro_torch.kernels.spmm_segment.ref import SPMM_CASES, spmm_tile_case
 from repro_torch.kernels.spmm_segment.spmm_segment import (SHORT_ROW,
                                                            tile_plan,
                                                            tile_scratch)
+from test_torch_engine import release_reference_executables  # noqa: F401
 
 SHAPES = [(10, 30, 4), (50, 200, 17), (30, 100, 128)]
 TOL = dict(rtol=1e-5, atol=1e-5)

@@ -23,6 +23,7 @@ from repro_torch.core.operators import dedup_targets as port_dedup_targets
 from repro_torch.core.semiring import or_combine as port_or_combine
 from repro_torch.core.table import ColumnTable as PortColumnTable
 from repro_torch.data import treegen as ptreegen
+from test_torch_engine import release_reference_executables  # noqa: F401
 
 
 def t(a) -> "torch.Tensor":
