@@ -53,8 +53,19 @@ Phases (any failure raises and the script exits non-zero):
    one-lane call, and every ``expand_lanes_case`` / ``pull_lanes_case``,
    a shared case stacked as four lanes), with its device launches per
    call and its kernels' times read last (``frontier_expand lanes:``,
-   ``frontier_pull lanes:``); and time the kernel, the plain version
-   and, where one exists, a single PyTorch library call;
+   ``frontier_pull lanes:``); the lane axis of ``spmm_segment`` (the
+   eight lanes of the outbound aggregate_sum batch at root 0's widest
+   dense level, each lane's frontier bits its source mask, exact against
+   the lane-axis plain version, each lane bit-equal to its one-lane call
+   on its masked sources, one lane with its mask equal to that call; the
+   same edges with seeded x on every vertex and eight seeded masks of
+   density 0 to 1 (``seeded``), exact; and every tile case at D = 1 and
+   17 as eight lanes, lane 1 masked off, against the plain version run on
+   the CPU; ``spmm_segment lane cases:``, then ``spmm_segment lanes:``
+   with its device launches per call, the 8 one-lane calls in a row and
+   ``torch.sparse.mm`` of all lanes at once beside it); and time the kernel,
+   the plain version and, where one exists, a single PyTorch library
+   call;
 3. drive three paths at full size on the repo's own deployment
    (``src/repro/configs/posdb_bfs.py``: 2^20-vertex tree of height 16,
    8 payload columns, depth 16, result cap 2^20, plus a float32 edge
@@ -112,7 +123,19 @@ Phases (any failure raises and the script exits non-zero):
    against ``rowstore`` (Exp 1-2) or
    ``rowstore_rewrite`` (Exp 3) in warm and busy ms; last, after every
    earlier profile line (its host and device memory stay out of their
-   numbers), on the same table without the weight column: MS-BFS
+   numbers), the weighted batches over the eight batch roots on the
+   table with ``w`` (``precursive`` outbound under each semiring and
+   shortest_path inbound and both ways, ``bitmap`` outbound under each
+   semiring and shortest_path and aggregate_sum inbound) and the
+   value-engine batches on the paper's table (each of the six outbound,
+   ``trecursive`` and ``trecursive_rewrite`` inbound and both ways):
+   every lane bit-equal to its single-root card run, root 0's lane to
+   the BFS and path oracles, ``spmm_segment``, ``frontier_expand`` and
+   ``late_gather`` called once a level for all lanes (``batch:`` lines
+   with warm ms beside the roots one by one, peak MiB and the reckoned
+   result buffers; two ``profile:`` lines), and a weighted
+   ``run_query_buckets`` in two buckets of 4 (``weighted buckets:``);
+   then, on the same table without the weight column: MS-BFS
    (``run_query_multi``) over the 32-root serving bucket outbound,
    inbound and both ways, every lane the same rows (positions,
    count, depth, overflow, row depths, every column) as lane i of the
@@ -187,8 +210,10 @@ from repro_torch.kernels.late_gather import ops as lg_ops  # noqa: E402
 from repro_torch.kernels.late_gather.ref import \
     late_gather_columns_ref  # noqa: E402
 from repro_torch.kernels.spmm_segment import ops as spmm_ops  # noqa: E402
-from repro_torch.kernels.spmm_segment.ref import \
-    spmm_segment_ref  # noqa: E402
+from repro_torch.kernels.spmm_segment.ref import (  # noqa: E402
+    SPMM_CASES, spmm_segment_lanes_ref, spmm_segment_ref, spmm_tile_case)
+from repro_torch.kernels.spmm_segment.spmm_segment import (  # noqa: E402
+    SHORT_ROW, tile_plan)
 from repro_torch.models import recsys  # noqa: E402
 
 # the posdb-bfs deployment (src/repro/configs/posdb_bfs.py), on one card:
@@ -226,6 +251,9 @@ NEG_SEED = 4                 # the negative positions of late_gather's checks
 BATCH_ROOTS = 8              # benchmarks/exp1_bfs.py's lockstep batch
 BUCKET_ROOTS = 32            # one serving bucket of the reference's planner
 TRAVERSAL_KERNELS = ("frontier_expand", "frontier_pull")
+# the kernels a batch calls once a level for all lanes
+LEVEL_KERNELS = TRAVERSAL_KERNELS + ("spmm_segment",)
+SPMM_LANE_DIMS = (1, 17)       # the widths of the lane-axis tile cases
 BATCH_ENGINES = ("precursive",) + DENSE_ENGINES   # the reach batches
 # the engines whose plan has a CSRIndexJoin, so frontier_expand each level
 INDEX_JOIN_ENGINES = ("precursive", "trecursive", "trecursive_rewrite",
@@ -1270,10 +1298,6 @@ def spmm_tile_cases_on_card() -> dict:
     on the card: rows of at most S edges equal to the plain version run on
     the CPU, every row within 1e-5 of its sum of absolute terms, two calls
     bit-equal.  Returns each case's E, hubs and largest error per D."""
-    from repro_torch.kernels.spmm_segment.ref import (SPMM_CASES,
-                                                      spmm_tile_case)
-    from repro_torch.kernels.spmm_segment.spmm_segment import (SHORT_ROW,
-                                                               tile_plan)
     cases = {}
     for case in SPMM_CASES:
         for d in (1, 4, 17, 128):
@@ -1336,6 +1360,240 @@ def spmm_segment_phase(r, cols: dict, num_vertices: int, flush):
         **main,
     }
     return entry, cases, calls
+
+
+def spmm_lane_bytes(xs: torch.Tensor, s_src: torch.Tensor,
+                    mask: torch.Tensor, num_out: int) -> tuple[int, int]:
+    """The bytes and float32 operations of one lane-axis call, each input
+    read once and each output written once, for this call's data: offsets
+    and the shared src in full, each lane's mask bytes at the sources of
+    in-range edges (the kernel reads no other), the weights of the edges
+    live in some lane, each lane's x rows that a live edge reads, and
+    every lane's output rows; two operations a live term."""
+    lanes, n, d = xs.shape
+    e = s_src.shape[0]
+    in_range = (s_src >= 0) & (s_src < n)
+    live = mask[:, s_src.clamp(0, n - 1).long()] & in_range
+    has_edge = torch.zeros((n,), dtype=torch.bool, device=xs.device)
+    has_edge[s_src[in_range].long()] = True
+    sources = int(has_edge.sum())
+    rows = int((mask & has_edge).sum())
+    nbytes = ((num_out + 1) * 4 + e * 4 + lanes * sources
+              + int(live.any(0).sum()) * 4 + rows * d * 4
+              + lanes * num_out * d * 4)
+    return nbytes, 2 * int(live.sum()) * d
+
+
+def spmm_lanes_library(xs, s_src, seg, s_w, mask, num_out: int):
+    """The one PyTorch call that computes every lane at once: the (num_out
+    x N) CSR matrix of the in-range edges' weights times the lanes' x,
+    each masked to 0 off its lane's sources and laid out as (N, L * D).
+    Returns the call, built outside any timed region, and its output's
+    (L, num_out, D) view."""
+    lanes, n, d = xs.shape
+    keep = (s_src >= 0) & (s_src < n) & (seg >= 0) & (seg < num_out)
+    sparse = torch.sparse_coo_tensor(
+        torch.stack([seg[keep], s_src[keep]]).long(), s_w[keep],
+        (num_out, n)).coalesce().to_sparse_csr()
+    dense = torch.where(mask[..., None], xs, 0).permute(1, 0, 2).reshape(
+        n, lanes * d)
+
+    def call():
+        return torch.sparse.mm(sparse, dense)
+    return call, lambda out: out.reshape(num_out, lanes, d).permute(1, 0, 2)
+
+
+def spmm_lanes_call(xs, s_src, seg, s_w, offsets, mask, flush,
+                    exact: bool, label: str, want=None, scale=None,
+                    short=None, library: bool = False
+                    ) -> tuple[dict, object]:
+    """One lane-axis ``spmm_segment`` call on the card: two calls bit-equal,
+    every lane bit-equal to the one-lane call on its sources masked to N,
+    one lane with its mask equal to that call, a lane whose mask is all
+    off zero, and the lanes equal to ``want`` (the lane-axis plain
+    version): exactly where ``exact``, else on the ``short`` rows exactly
+    and elsewhere within 1e-5 of each row's absolute sum ``scale``.  Times
+    the call, the plain version (on the card) and the lanes' one-lane
+    calls in a row, the L one-lane sources masked beforehand, and with
+    ``library`` :func:`spmm_lanes_library`'s call.  Returns the numbers
+    and the call."""
+    lanes, n, d = xs.shape
+    num_out = offsets.shape[0] - 1
+
+    def call():
+        return spmm_ops.spmm_segment_sorted(xs, s_src, seg, s_w, offsets,
+                                            mask)
+    before = spmm_ops.LAUNCHES
+    got, again = call(), call()
+    torch.cuda.synchronize()
+    require(spmm_ops.LAUNCHES == before + 2 * (num_out * d * lanes > 0),
+            f"{label}: {spmm_ops.LAUNCHES - before} launches for two calls")
+    require(got.shape == (lanes, num_out, d)
+            and torch.equal(got.view(torch.int32), again.view(torch.int32)),
+            f"{label}: shape {tuple(got.shape)} or two calls differ")
+    masked = [torch.where(mask[i][s_src.clamp(0, n - 1).long()], s_src, n)
+              for i in range(lanes)]
+    for i in range(lanes):
+        one = spmm_ops.spmm_segment_sorted(xs[i], masked[i], seg, s_w,
+                                           offsets)
+        require(torch.equal(got[i].view(torch.int32), one.view(torch.int32)),
+                f"{label}: lane {i} differs from its one-lane call")
+        if i == 0:
+            alone = spmm_ops.spmm_segment_sorted(xs[:1], s_src, seg, s_w,
+                                                 offsets, mask[:1])[0]
+            require(torch.equal(alone.view(torch.int32),
+                                one.view(torch.int32)),
+                    f"{label}: L = 1 differs from the one-lane call")
+        if not bool(mask[i].any()):
+            require(not bool(got[i].any()), f"{label}: empty lane {i}")
+    if want is None:
+        want = spmm_segment_lanes_ref(xs, s_src, seg, s_w, num_out, mask)
+    got_w = got.to(want.device)
+    if exact:
+        require(torch.equal(got_w, want),
+                f"{label} differs from the lane-axis plain version")
+    else:
+        require(torch.equal(got_w[:, short], want[:, short])
+                and bool(((got_w - want).abs()
+                          <= 1e-5 * scale + 1e-5).all()),
+                f"{label} differs from the lane-axis plain version beyond "
+                f"1e-5 of the rows' absolute sums")
+    nbytes, ops = spmm_lane_bytes(xs, s_src, mask, num_out)
+
+    def one_by_one():
+        for i in range(lanes):
+            spmm_ops.spmm_segment_sorted(xs[i], masked[i], seg, s_w, offsets)
+    plain = None if not exact else time_ms(
+        lambda: spmm_segment_lanes_ref(xs, s_src, seg, s_w, num_out, mask),
+        flush)
+    lib = {}
+    if library:
+        lib_call, lanes_of = spmm_lanes_library(xs, s_src, seg, s_w, mask,
+                                                num_out)
+        lib_out = lanes_of(lib_call()).to(want.device)
+        require(bool(torch.isclose(lib_out, want, **SPMM_TOL).all()),
+                f"{label}: torch.sparse.mm differs from the lane-axis "
+                f"plain version beyond {SPMM_TOL}")
+        lib = {"library_ms": time_ms(lib_call, flush),
+               "library_max_abs_err": max_abs_err(lib_out, want)}
+    return {
+        "max_abs_err": max_abs_err(got_w, want),
+        "ms": time_ms(call, flush),
+        "one_lane_calls_ms": time_ms(one_by_one, flush),
+        "plain_ms": plain,
+        **lib,
+        "bound_ms": bound_ms(nbytes, ops),
+        "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S
+        >= ops / FP32_OPS_PER_S else "operations",
+        "live_lanes": int(mask.any(-1).sum()),
+    }, call
+
+
+def spmm_lane_input(results, roots, cols: dict, num_vertices: int,
+                    level: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Each lane's frontier and values at ``level`` of the outbound
+    aggregate_sum traversal from its root, rebuilt from the lane's
+    PRecursive rows (on the tree the two emit the same rows level by
+    level): the frontier is the sources of the lane's rows of that level,
+    and a frontier vertex's value the product of the weights on its path
+    from the root, in float32 root-down, as the engine folds it.  Returns
+    (xs (L, V, 1), mask (L, V)) on the CPU."""
+    frm, to, w = cols["from"], cols["to"], cols[WEIGHT_COL]
+    xs = np.zeros((len(results), num_vertices), np.float32)
+    mask = np.zeros((len(results), num_vertices), bool)
+    for i, (r, root) in enumerate(zip(results, roots)):
+        count = int(r.count)
+        pos = r.positions[:count].cpu().numpy()
+        depth = r.row_depths[:count].cpu().numpy()
+        prod = np.ones(num_vertices, np.float32)
+        for d in range(level):
+            p = pos[depth == d]
+            prod[to[p]] = prod[frm[p]] * w[p]
+        f = frm[pos[depth == level]]
+        mask[i, f] = True
+        xs[i, f] = prod[f]
+    return torch.from_numpy(xs)[..., None], torch.from_numpy(mask)
+
+
+def spmm_lane_cases_on_card(flush) -> dict:
+    """Each shared tile case (``spmm_tile_case``) at the widths
+    SPMM_LANE_DIMS as BATCH_ROOTS lanes in one call: each lane its own
+    seeded x and source mask (lane 1 masks every source off), checked by
+    :func:`spmm_lanes_call` against the lane-axis plain version run on the
+    CPU.  Returns each case's numbers per width."""
+    cases = {}
+    for case in SPMM_CASES:
+        for d in SPMM_LANE_DIMS:
+            x, src, dst, w, n_out = spmm_tile_case(case, d)
+            n = x.shape[0]
+            rng = np.random.default_rng(SPMM_CASES.index(case) + 1000 * d)
+            xs = torch.from_numpy(rng.standard_normal(
+                (BATCH_ROOTS, n, d), dtype=np.float32))
+            mask = torch.from_numpy(rng.random((BATCH_ROOTS, n)) < 0.6)
+            mask[1] = False
+            dst = torch.from_numpy(dst)
+            seg = spmm_ops.segments(dst, n_out)
+            s_src = torch.from_numpy(src)[seg.order]
+            s_w = torch.from_numpy(w)[seg.order]
+            want = spmm_segment_lanes_ref(xs, s_src, seg.seg, s_w, n_out,
+                                          mask)
+            scale = spmm_segment_lanes_ref(xs.abs(), s_src, seg.seg,
+                                           s_w.abs(), n_out, mask)
+            short = seg.offsets.diff() <= SHORT_ROW
+            on = [t.to(DEVICE) for t in (xs, s_src, seg.seg, s_w,
+                                         seg.offsets, mask)]
+            numbers, _ = spmm_lanes_call(
+                *on, flush, False, f"spmm_segment lane case {case} D={d}",
+                want, scale, short)
+            hub = tile_plan(s_src.shape[0], d).hub_edges
+            numbers.update(E=s_src.shape[0],
+                           hubs=int((seg.offsets.diff() > hub).sum()))
+            cases.setdefault(case, {})[d] = numbers
+    return cases
+
+
+# the source-mask densities of the seeded main-shape lane case: an empty
+# lane, a full one, and six between
+SPMM_LANE_DENSITIES = (0.0, 0.05, 0.15, 0.3, 0.5, 0.7, 0.9, 1.0)
+
+
+def spmm_segment_lane_phase(ds, xs, mask, level: int, flush):
+    """The lane axis at the deployment's widest dense level: the
+    BATCH_ROOTS lanes of the outbound aggregate_sum batch (root 0's
+    widest level, the other lanes at the same level of their own
+    traversals) in one call over the tree's edges in destination order,
+    exact against the lane-axis plain version (every row of the tree has
+    at most one edge).  Then the same edges with seeded x on every vertex
+    and each lane its own seeded mask (SPMM_LANE_DENSITIES), where a lane
+    that ignored its mask, or read another lane's, would differ; then the
+    tile cases.  Returns the entry (the seeded case under ``seeded``), the
+    cases and the call."""
+    frm, to = ds.table.column("from"), ds.table.column("to")
+    w = ds.edge_weights(WEIGHT_COL)
+    seg = spmm_ops.segments(to, SPEC.num_vertices)
+    s_src, s_w = frm[seg.order], w[seg.order]
+    xs, mask = xs.to(DEVICE), mask.to(DEVICE)
+    entry, call = spmm_lanes_call(xs, s_src, seg.seg, s_w, seg.offsets,
+                                  mask, flush, True,
+                                  f"spmm_segment lanes level {level}",
+                                  library=True)
+    entry["shape"] = (f"L={xs.shape[0]} level={level} V={xs.shape[1]} "
+                      f"E={s_src.shape[0]} D=1 "
+                      f"frontier={mask.sum(-1).tolist()}")
+    rng = np.random.default_rng(SPEC.seed + 2)
+    lanes, n = mask.shape
+    seeded_x = torch.from_numpy(rng.standard_normal(
+        (lanes, n, 1), dtype=np.float32)).to(DEVICE)
+    seeded_mask = torch.from_numpy(
+        rng.random((lanes, n)) < np.asarray(SPMM_LANE_DENSITIES)[:, None]
+    ).to(DEVICE)
+    seeded, _ = spmm_lanes_call(seeded_x, s_src, seg.seg, s_w, seg.offsets,
+                                seeded_mask, flush, True,
+                                "spmm_segment lanes seeded", library=True)
+    seeded["shape"] = (f"L={lanes} V={n} E={s_src.shape[0]} D=1 "
+                       f"mask={seeded_mask.sum(-1).tolist()}")
+    entry["seeded"] = seeded
+    return entry, spmm_lane_cases_on_card(flush), call
 
 
 def value_oracle(levels: list, cols: dict, num_vertices: int
@@ -1710,9 +1968,12 @@ class Batch(NamedTuple):
     engine: str
     direction: str
     roots: tuple
+    workload: str = "reach"
 
     def __str__(self) -> str:
-        return f"{self.engine} {self.direction} x{len(self.roots)}"
+        label = f"{self.engine} {self.direction} x{len(self.roots)}"
+        return label if self.workload == "reach" else \
+            f"{label} {self.workload}"
 
 
 def make_batches(cols: dict, num_vertices: int) -> list[Batch]:
@@ -1731,14 +1992,67 @@ def make_batches(cols: dict, num_vertices: int) -> list[Batch]:
                Batch("precursive", "outbound", eight + tuple(more))])
 
 
-def run_batch(ds, b: Batch, levels: list, card: str) -> dict:
+def make_value_batches(cols: dict, num_vertices: int
+                       ) -> tuple[list[Batch], list[Batch]]:
+    """The weighted batches over the eight roots of :func:`batch_roots`:
+    ``precursive`` outbound under each semiring and shortest_path inbound
+    and both ways (the deepest vertex in place of the last random root),
+    ``bitmap`` outbound under each semiring and shortest_path and
+    aggregate_sum inbound (the aggregate_sum batches run the lane-axis
+    ``spmm_segment``); and the value-engine batches: each of the six
+    outbound, ``trecursive`` and ``trecursive_rewrite`` inbound and both
+    ways."""
+    eight = tuple(batch_roots(cols, num_vertices))
+    back = eight[:-1] + (num_vertices - 1,)
+    sp = "shortest_path"
+    weighted = ([Batch("precursive", "outbound", eight, s)
+                 for s in SEMIRINGS]
+                + [Batch("precursive", d, back, sp)
+                   for d in ("inbound", "both")]
+                + [Batch("bitmap", "outbound", eight, s) for s in SEMIRINGS]
+                + [Batch("bitmap", "inbound", back, s)
+                   for s in (sp, "aggregate_sum")])
+    value = ([Batch(engine, "outbound", eight)
+              for engine in VALUE_ENGINE_NAMES]
+             + [Batch(engine, d, back)
+                for engine in ("trecursive", "trecursive_rewrite")
+                for d in ("inbound", "both")])
+    return weighted, value
+
+
+def result_buffer_mib(ds, b: Batch) -> float | None:
+    """The working result a value-engine batch holds: L x (cap_r + cap_f)
+    rows of the columns its recursion appends (full 4 W-byte rows on the
+    row store, the output columns on ``trecursive``, the id alone on a
+    rewrite); None for the positional and dense engines."""
+    if b.engine not in VALUE_ENGINE_NAMES:
+        return None
+    if b.engine.endswith("_rewrite"):
+        row = 4
+    elif b.engine.startswith("rowstore"):
+        row = 4 * sum(int(np.prod(c.shape[1:]))
+                      for c in ds.table.columns.values())
+    else:
+        row = sum(c.element_size() * int(np.prod(c.shape[1:]))
+                  for name, c in ds.table.columns.items()
+                  if name in query(b.engine).out_cols)
+    return len(b.roots) * (CAPS.result + CAPS.frontier) * row / 2 ** 20
+
+
+def run_batch(ds, b: Batch, levels: list, card: str, id_to_pos=None,
+              values=None) -> dict:
     """One ``run_query_batch`` call with the counters zeroed just before
     and read just after: every lane bit-equal to the card's run of its
-    root alone, root 0's lane equal to the BFS oracle, and each per-level
-    kernel called once on each level where some lane calls it (a lane's
-    levels from :func:`launch_levels` of its own run), so a level is one C
-    call for all lanes.  Returns the ``batch:`` line's numbers."""
-    q = query(b.engine, b.direction)
+    root alone, root 0's lane (outbound) equal to the BFS oracle (its ids
+    mapped back to positions through ``id_to_pos`` where the recursion
+    carried values) and, weighted, to the path oracle ``values``, and
+    each per-level kernel called once on each level where some lane calls
+    it (a lane's levels from :func:`launch_levels` of its own run), so a
+    level is one C call for all lanes; ``late_gather`` once, or, on the
+    tuple and row-store engines, once a level of the deepest lane, once
+    for the seed blocks and once more for a rewrite's join.  Returns the
+    ``batch:`` line's numbers."""
+    q = query(b.engine, b.direction, b.workload)
     torch.cuda.synchronize()
     held = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
@@ -1753,30 +2067,113 @@ def run_batch(ds, b: Batch, levels: list, card: str) -> dict:
         label = f"batch {b} lane {i} root {root}"
         require_equal(lane, one, label, "the single-root card run")
         if b.direction == "outbound" and root == 0:
-            check_root0(lane, levels, SPEC, label)
+            check_root0(lane, levels, SPEC, label,
+                        real_positions(b.engine, lane, id_to_pos)
+                        if id_to_pos is not None else None)
+            if b.workload != "reach":
+                require(torch.equal(lane.vertex_values.cpu(),
+                                    torch.from_numpy(values[b.workload])),
+                        f"{label}: vertex values differ from the path "
+                        f"oracle")
         lane_levels.append(launch_levels(
-            Request(b.engine, b.direction, root), one, SPEC.num_vertices))
+            Request(b.engine, b.direction, root, b.workload), one,
+            SPEC.num_vertices))
         one_by_one_ms += warm_latency_ms(lambda root=root: run_query(
             q, ds, root))
     depths = got.depth.tolist()
     deepest = [i for i, d in enumerate(depths) if d == max(depths)]
     want = {k: len(set().union(*(lv[k] for lv in lane_levels)))
-            for k in TRAVERSAL_KERNELS}
+            for k in LEVEL_KERNELS}
+    gathers = (max(depths) + 1 + b.engine.endswith("_rewrite")
+               if b.engine in VALUE_ENGINE_NAMES else 1)
     require(launches == {**dict.fromkeys(KERNEL_OPS, 0), **want,
-                         "late_gather": 1},
-            f"batch {b}: launches {launches}, want {want}, one late_gather")
+                         "late_gather": gathers},
+            f"batch {b}: launches {launches}, want {want} and "
+            f"{gathers} late_gather")
     warm = warm_latency_ms(lambda: run_query_batch(q, ds, list(b.roots)))
-    return {
+    line = {
         "call": str(b), "lanes": len(b.roots), "levels": max(depths),
         "lane_depths": depths, "launches": launches,
         "deepest_lane_launches": {k: max(len(lane_levels[i][k])
                                          for i in deepest)
-                                  for k in TRAVERSAL_KERNELS},
+                                  for k in LEVEL_KERNELS},
         "summed_lane_launches": {k: sum(len(lv[k]) for lv in lane_levels)
-                                 for k in TRAVERSAL_KERNELS},
+                                 for k in LEVEL_KERNELS},
         "warm_ms": warm, "one_by_one_warm_ms": one_by_one_ms,
         "peak_mib": peak_mib, "count": got.count.tolist(),
         "overflow": got.overflow.tolist(), "card": card}
+    reckoned = result_buffer_mib(ds, b)
+    if reckoned is not None:
+        line["result_buffer_mib"] = reckoned
+    return line
+
+
+def run_weighted_buckets(ds, roots: list, card: str) -> tuple[dict, dict]:
+    """``run_query_buckets`` of ``precursive`` shortest_path over the eight
+    roots in two buckets of 4: every root bit-equal to its single-root
+    card run, ``late_gather`` once a bucket.  Returns the ``weighted
+    buckets:`` line and the launches."""
+    q = query("precursive", workload="shortest_path")
+    size = len(roots) // 2
+    buckets = [types.SimpleNamespace(indices=tuple(range(k, k + size)),
+                                     roots=tuple(roots[k:k + size]),
+                                     caps=CAPS)
+               for k in range(0, len(roots), size)]
+    reset_launches()
+    out = run_query_buckets(q, ds, buckets)
+    launches = read_launches()
+    require(launches["late_gather"] == len(buckets)
+            and launches["frontier_expand"] > 0
+            and launches["frontier_pull"] == launches["spmm_segment"]
+            == launches["embedding_bag"] == 0,
+            f"weighted buckets: launches {launches}")
+    for i, root in enumerate(roots):
+        require_equal(out[i], run_query(q, ds, root),
+                      f"weighted buckets root {root}",
+                      "the single-root card run")
+    return {"engine": "precursive", "workload": "shortest_path",
+            "buckets": len(buckets), "lanes": len(roots),
+            "launches": launches,
+            "warm_ms": warm_latency_ms(
+                lambda: run_query_buckets(q, ds, buckets)),
+            "card": card}, launches
+
+
+def value_batch_phase(ds, ds_paper, cols: dict, levels: list, values: dict,
+                      id_to_pos, card: str, by_path: dict) -> None:
+    """The weighted batches on ``ds`` and the value-engine batches on
+    ``ds_paper`` (:func:`make_value_batches`), each through
+    :func:`run_batch` with its counters zeroed just before it, summed
+    into the ``batch_values`` path; a profile line for the aggregate_sum
+    ``bitmap`` batch and the ``rowstore`` batch; then the weighted
+    ``run_query_buckets`` call (``weighted_buckets``)."""
+    t0 = time.perf_counter()
+    weighted, value = make_value_batches(cols, SPEC.num_vertices)
+    by_path["batch_values"] = dict.fromkeys(KERNEL_OPS, 0)
+    lines = {}
+    for on, batches in ((ds, weighted), (ds_paper, value)):
+        for b in batches:
+            line = run_batch(on, b, levels, card, id_to_pos, values)
+            lines[str(b)] = line
+            for name, n in line["launches"].items():
+                by_path["batch_values"][name] += n
+            print("batch: " + json.dumps(line))
+    eight = list(weighted[0].roots)
+    for on, b in ((ds, Batch("bitmap", "outbound", tuple(eight),
+                             "aggregate_sum")),
+                  (ds_paper, Batch("rowstore", "outbound", tuple(eight)))):
+        q = query(b.engine, b.direction, b.workload)
+
+        def batch_call(q=q, on=on):
+            return run_query_batch(q, on, eight)
+        print("profile: " + json.dumps({**profile_call(
+            f"batch {b}", batch_call, lines[str(b)]["warm_ms"]),
+            "card": card}))
+    line, by_path["weighted_buckets"] = run_weighted_buckets(ds, eight, card)
+    print("weighted buckets: " + json.dumps(line))
+    torch.cuda.empty_cache()
+    print(f"weighted and value batches: {len(weighted) + len(value)} "
+          f"batches in {time.perf_counter() - t0:.3f} s (host clock)")
 
 
 # ---------------------------------------------------------------------------
@@ -2204,6 +2601,17 @@ def main() -> None:
     print("spmm_segment cases: " + json.dumps(sp_cases))
     print("spmm_segment tile cases: "
           + json.dumps(spmm_tile_cases_on_card()))
+    # the lane axis of spmm_segment: the aggregate_sum batch's lanes at
+    # root 0's widest dense level
+    sum_count = int(bitmap_sum0.count)
+    sum_level = int(torch.bincount(bitmap_sum0.row_depths[:sum_count])
+                    .argmax())
+    sp_lanes, sp_lane_cases, sp_lane_call = spmm_segment_lane_phase(
+        ds, *spmm_lane_input(expected[:BATCH_ROOTS], eight, cols,
+                             SPEC.num_vertices, sum_level),
+        sum_level, flush)
+    print("spmm_segment lane cases: " + json.dumps(sp_lane_cases))
+    sp["lanes"] = sp_lanes
     bulk = recsys_requests[P99_REQUESTS]
     bulk_pos = recsys.featurize(DEEPFM, bulk.dense.to(DEVICE),
                                 bulk.sparse.to(DEVICE), offsets)
@@ -2463,6 +2871,12 @@ def main() -> None:
     print("frontier_expand lanes: " + json.dumps({**fe_lanes,
                                                   "card": card}))
     print("frontier_pull lanes: " + json.dumps({**fp_lanes, "card": card}))
+    sp_lanes.update(spmm_profile({"lanes": sp_lane_call}, flush)["lanes"])
+    print("spmm_segment lanes: " + json.dumps({**sp_lanes, "card": card}))
+    # the weighted and value-engine batches after every earlier profile
+    # line, whose numbers their memory stays out of
+    value_batch_phase(ds, ds_paper, cols, levels, values, id_to_pos, card,
+                      by_path)
     # MS-BFS and the bucket executor last: their host and device memory
     # stay out of every earlier path's numbers
     multiquery_phase(ds_paper, paper_cols, levels, card, by_path)
@@ -2473,6 +2887,8 @@ def main() -> None:
         require(entry["launches"] > 0, f"{name} was never launched")
     require(by_path["weighted"]["spmm_segment"] > 0,
             "the weighted path never launched spmm_segment")
+    require(by_path["batch_values"]["spmm_segment"] > 0,
+            "the weighted batches never launched spmm_segment")
     for path, n in by_path.items():
         require((n["embedding_bag"] > 0) == (path == "bags"),
                 f"{path} path: embedding_bag launched {n['embedding_bag']} "

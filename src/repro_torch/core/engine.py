@@ -10,7 +10,7 @@ A query's ``workload`` is ``reach`` (boolean BFS) or a value semiring of
 :mod:`repro_torch.core.semiring`, which runs on ``precursive`` and
 ``bitmap`` with the edge weights of ``weight_col``.  :func:`run_query`
 answers one root through the single fixed-point driver, and
-:func:`run_query_batch` many roots of a reach query at once (a leading
+:func:`run_query_batch` many roots of any query at once (a leading
 lane axis on every result field, :func:`result_lane` slices one out); on
 a CUDA dataset both plug the hand-written kernels in: ``frontier_expand``
 into every IndexJoin, ``frontier_pull`` into every pull step and
@@ -100,11 +100,6 @@ PUSH_COUNTERPART = {"diropt": "bitmap", "diropt_hybrid": "hybrid"}
 
 # the engines that carry the semiring value plane (as in the reference)
 WEIGHTED_ENGINE_NAMES: tuple[str, ...] = ("precursive", "bitmap")
-
-# the batches these ROADMAP slices bring: weighted workloads, and the
-# paper's tuple-based and row-store engines
-_WEIGHTED_BATCH_SLICE = "batched roots, weighted"
-_VALUE_BATCH_SLICE = "batched roots, the paper's other engines"
 
 
 def resolve_device(device=None) -> torch.device:
@@ -409,26 +404,17 @@ def run_query(q: RecursiveQuery, ds: Dataset, root: int) -> BFSResult:
 
 
 def run_query_batch(q: RecursiveQuery, ds: Dataset, roots) -> BFSResult:
-    """Execute one reach query for many roots at once: every field of the
-    returned ``BFSResult`` gains a leading ``len(roots)`` lane axis, and
-    lane i is bit-identical to ``run_query(q, ds, roots[i])``.  One
-    fixed-point loop serves every lane, with one host read per level for
-    all of them; on a CUDA dataset the same kernels as in
-    :func:`run_query` run, one call per level for every lane that takes
-    them.  A weighted query raises NotImplementedError (after the checks
-    that :func:`run_query` makes), and so does a query on one of the
-    paper's tuple-based or row-store engines (``VALUE_ENGINE_NAMES``).
-    Traced like :func:`run_query`."""
-    if q.workload != "reach" or q.engine in VALUE_ENGINE_NAMES:
-        build_plan(q)
-        what, slice_ = ((f"the weighted workload {q.workload!r}",
-                         _WEIGHTED_BATCH_SLICE) if q.workload != "reach"
-                        else (f"the engine {q.engine!r}", _VALUE_BATCH_SLICE))
-        raise NotImplementedError(
-            f"batched roots for {what} are not ported yet: they come with "
-            f"the ROADMAP slice '{slice_}'; run one run_query per root")
-    roots = torch.as_tensor(roots).reshape(-1).tolist()
+    """Execute one query for many roots at once, on any engine and
+    workload that :func:`run_query` takes (and with the same
+    ``ValueError``s): every field of the returned ``BFSResult`` gains a
+    leading ``len(roots)`` lane axis, and lane i is bit-identical to
+    ``run_query(q, ds, roots[i])``.  One fixed-point loop serves every
+    lane, with one host read per level for all of them; on a CUDA dataset
+    the same kernels as in :func:`run_query` run, one call per level for
+    every lane that takes them (``spmm_segment`` with each lane's frontier
+    bits as its source mask).  Traced like :func:`run_query`."""
     plan = _device_plan(q, ds)
+    roots = torch.as_tensor(roots).reshape(-1).tolist()
 
     def run():
         return execute_batch(plan, query_context(q, ds), roots,
@@ -894,8 +880,9 @@ def run_query_buckets(q: RecursiveQuery, ds: Dataset, buckets
     is bit-identical to ``run_query(q, ds, root)`` on its root.  Launch
     ordering, the overflow retry at ``q.caps`` and the scatter live in
     :func:`dispatch_buckets`.  Each bucket runs through
-    :func:`run_query_batch`, so a weighted query, or one on the paper's
-    tuple-based and row-store engines, raises NotImplementedError."""
+    :func:`run_query_batch`, so every engine and workload that
+    :func:`run_query` takes is served, weighted queries and the paper's
+    tuple-based and row-store engines included."""
     def _dispatch(i, b, caps):
         qb = dataclasses.replace(q, caps=caps) if caps != q.caps else q
         return run_query_batch(qb, ds, b.roots)

@@ -72,13 +72,15 @@ loop copies the level's scalars to the host once per level, in one
 transfer (:class:`HostCounts`), and the operators branch on those.
 
 Batched roots (:func:`fixed_point_batch`, the reference's vmap over one
-``while_loop``): every state field gains a leading lane axis, and the reach
-operators run on it unchanged, each lane along the last axis.  All lanes
-still in the loop share the level's depth; a lane whose frontier dies is
-retired from the loop state, and one finisher runs over every lane at the
-end.  Where lanes take different branches (``HybridStep``'s sparse/dense,
-``DirectionSwitch``'s push/pull) each side runs on its own group of lanes
-(:func:`_lanes_split`).
+``while_loop``): every state field gains a leading lane axis (the value
+blocks' dicts too), and every operator runs on it, each lane along the
+last axis: the weighted steps combine into (L, V) planes, each lane into
+its own row, and the value appends land each lane's block at that lane's
+own host count.  All lanes still in the loop share the level's depth; a
+lane whose frontier dies is retired from the loop state, and one finisher
+runs over every lane at the end.  Where lanes take different branches
+(``HybridStep``'s sparse/dense, ``DirectionSwitch``'s push/pull) each side
+runs on its own group of lanes (:func:`_lanes_split`).
 
 Bit-parallel roots (:func:`multiquery_fixed_point`, MS-BFS): up to 32
 roots are the bits of one word per vertex, and one sweep a level advances
@@ -184,16 +186,16 @@ class HostCounts(NamedTuple):
     """The level's scalars on the host, copied by the fixed-point loop once
     per level in one transfer: the depth of the level, its live frontier
     entries and (switch pipelines only) the vertices discovered before
-    it.  In a batch ``frontier`` and ``visited`` hold one int per lane
-    still in the loop, which all share ``depth``.  ``appended`` (one root
-    only) is the rows appended to the working result so far, clamped to
-    its capacity: the frontier counts of the levels so far summed, this
-    one's included, which is where the value appends write."""
+    it.  ``appended`` is the rows appended to the working result so far:
+    the frontier counts of the levels so far summed, this one's included,
+    which (clamped to the result's capacity) is where the value appends
+    write.  In a batch ``frontier``, ``visited`` and ``appended`` hold one
+    int per lane still in the loop, which all share ``depth``."""
 
     depth: int = 0
     frontier: int | list[int] = 0
     visited: int | list[int] = 0
-    appended: int = 0
+    appended: int | list[int] = 0
 
 
 class TraversalState(NamedTuple):
@@ -267,7 +269,7 @@ def dedup_targets(targets: torch.Tensor, valid: torch.Tensor,
 
 def append_values(bufs: Dict[str, torch.Tensor], count: torch.Tensor,
                   vals: Dict[str, torch.Tensor], block_count: torch.Tensor,
-                  cap_r: int, offset: int
+                  cap_r: int, offset: int | list[int]
                   ) -> tuple[Dict[str, torch.Tensor], torch.Tensor,
                              torch.Tensor]:
     """Append a value block into larger result buffers (the tuple/row-store
@@ -278,14 +280,30 @@ def append_values(bufs: Dict[str, torch.Tensor], count: torch.Tensor,
     each buffer holds F spare rows past ``cap_r`` that take the rows past
     it, which are dropped, and padding lands on slots past the new count,
     which hold zeros.  The copy is in place (the buffers belong to the
-    run).  Returns (bufs, new_count, overflowed)."""
-    cap_f = next(iter(vals.values())).shape[0]
-    idx = torch.arange(cap_f, dtype=torch.int32, device=count.device)
-    live = (idx < block_count) & (idx < cap_r - offset)
+    run).  With a lane axis (``count`` (L,), buffers (L, R + F, ...),
+    blocks (L, F, ...), ``offset`` one int per lane) each lane's block
+    lands at its own offset in its own rows, all lanes of a buffer by one
+    ``index_copy_``.  Returns (bufs, new_count, overflowed)."""
+    lead = count.dim()
+    cap_f = next(iter(vals.values())).shape[lead]
+    dev = count.device
+    idx = torch.arange(cap_f, dtype=torch.int32, device=dev)
+    if lead:
+        # row i of lane l lands at flat row l * (R + F) + offset_l + i
+        offs = torch.tensor(offset, dtype=torch.int64, device=dev)
+        lanes = torch.arange(offs.shape[0], dtype=torch.int64, device=dev)
+        rows = ((lanes * (cap_r + cap_f) + offs)[:, None] + idx).reshape(-1)
+        live = (idx < block_count[:, None]) & (idx < cap_r - offs[:, None])
+    else:
+        live = (idx < block_count) & (idx < cap_r - offset)
     for k, buf in bufs.items():
         v = vals[k]
-        mask = live.reshape(live.shape + (1,) * (v.dim() - 1))
-        buf.narrow(0, offset, cap_f).copy_(torch.where(mask, v, 0))
+        mask = live.reshape(live.shape + (1,) * (v.dim() - live.dim()))
+        block = torch.where(mask, v, 0)
+        if lead:
+            buf.flatten(0, 1).index_copy_(0, rows, block.flatten(0, 1))
+        else:
+            buf.narrow(0, offset, cap_f).copy_(block)
     new_count = (count + block_count).clamp(max=cap_r)
     return bufs, new_count, (count + block_count) > cap_r
 
@@ -506,37 +524,60 @@ def _per_lane(fn, *counts):
     return fn(*counts)
 
 
+def _lane_fields(state: TraversalState) -> dict:
+    """The fields of a batch state with a lane axis: every tensor but the
+    shared 0-d ``depth``, and the value-block dicts."""
+    return {k: v for k, v in state._asdict().items()
+            if (isinstance(v, torch.Tensor) and v.dim() > 0)
+            or isinstance(v, dict)}
+
+
 def _select_lanes(state: TraversalState, rows: list[int]) -> TraversalState:
     """The batch state of the lanes ``rows`` (in that order): every field
-    with a lane axis copied by one ``index_select``, the host counts cut to
-    match.  The shared ``depth`` is kept."""
+    with a lane axis copied by one ``index_select`` (each tensor of the
+    value-block dicts too), the host counts cut to match.  The shared
+    ``depth`` is kept."""
     idx = torch.tensor(rows, dtype=torch.int64, device=state.depth.device)
-    fields = {k: v.index_select(0, idx) for k, v in state._asdict().items()
-              if isinstance(v, torch.Tensor) and v.dim() > 0}
-    host = state.host
-    if isinstance(host.frontier, list):
-        host = host._replace(
-            frontier=[host.frontier[i] for i in rows],
-            visited=([host.visited[i] for i in rows]
-                     if isinstance(host.visited, list) else host.visited))
+
+    def take(v):
+        if isinstance(v, dict):
+            return {k: t.index_select(0, idx) for k, t in v.items()}
+        return v.index_select(0, idx)
+    fields = {k: take(v) for k, v in _lane_fields(state).items()}
+    host = state.host._replace(**{
+        k: [v[i] for i in rows] for k, v in state.host._asdict().items()
+        if isinstance(v, list)})
     return state._replace(host=host, **fields)
 
 
 def _merge_lanes(parts: list, depth: torch.Tensor) -> TraversalState:
     """Put the states of ``parts``, a list of (lane rows, batch state) whose
-    rows together are 0..L-1, back in lane order, with ``depth`` as the
-    result's depth field."""
+    rows together are 0..L-1, back in lane order (their host counts too),
+    with ``depth`` as the result's depth field."""
     rows = [r for part_rows, _ in parts for r in part_rows]
     first = parts[0][1]
     order = torch.empty(len(rows), dtype=torch.int64)
     order[torch.tensor(rows, dtype=torch.int64)] = torch.arange(len(rows))
+    back = order.tolist()
     order = order.to(first.depth.device)
+
+    def cat(vs):
+        return torch.cat(vs).index_select(0, order)
     fields = {}
-    for k, v in first._asdict().items():
-        if isinstance(v, torch.Tensor) and v.dim() > 0:
-            fields[k] = torch.cat([getattr(st, k) for _, st in parts]
-                                  ).index_select(0, order)
-    return first._replace(depth=depth, **fields)
+    for k, v in _lane_fields(first).items():
+        if isinstance(v, dict):
+            fields[k] = {name: cat([getattr(st, k)[name] for _, st in parts])
+                         for name in v}
+        else:
+            fields[k] = cat([getattr(st, k) for _, st in parts])
+    host = {}
+    for k in first.host._fields:
+        lists = [getattr(st.host, k) for _, st in parts]
+        if all(isinstance(v, list) for v in lists):
+            joined = [x for v in lists for x in v]
+            host[k] = [joined[i] for i in back]
+    return first._replace(depth=depth, host=first.host._replace(**host),
+                          **fields)
 
 
 def _lanes_split(state: TraversalState, flags, on_true, on_false
@@ -601,8 +642,8 @@ class Seed(Operator):
 
     def _init_weighted(self, ctx, state, root):
         sr = get_semiring(self.semiring)
-        nv = state.visited.shape[0]
-        r = min(max(root, 0), nv - 1)
+        dev = state.depth.device
+        r = _root_slot(root, state.visited.shape[-1], dev)
         visited = state.visited.clone()
         visited[r] = True
         vertex_val = state.vertex_val.clone()
@@ -610,16 +651,18 @@ class Seed(Operator):
         if self.kind == "dense":
             bits = torch.zeros_like(visited)
             bits[r] = True
-            fval = torch.full((nv,), sr.identity, dtype=torch.float32,
-                              device=visited.device)
+            fval = torch.full(visited.shape, sr.identity,
+                              dtype=torch.float32, device=dev)
             fval[r] = sr.seed_value
             return state._replace(frontier_bits=bits, visited=visited,
                                   vertex_val=vertex_val, frontier_val=fval,
                                   frontier_count=torch.ones_like(
                                       state.frontier_count))
         ej = _num_join(ctx)
-        cap = state.frontier_pos.shape[0]
-        blk = compact_mask(_seed_mask(ctx, root), cap, ej)
+        cap = state.frontier_pos.shape[-1]
+        key = root if isinstance(root, int) else \
+            torch.tensor(root, dtype=torch.int64, device=dev)[:, None]
+        blk = compact_mask(_seed_mask(ctx, key), cap, ej)
         seed = torch.tensor(sr.seed_value, dtype=torch.float32,
                             device=visited.device)
         fval = torch.where(blk.valid_mask(),
@@ -631,8 +674,7 @@ class Seed(Operator):
                               vertex_val=vertex_val, frontier_val=fval)
 
     def init(self, ctx, state, root):
-        """``root`` is an int, or a list of ints for a batch (reach
-        only)."""
+        """``root`` is an int, or a list of ints for a batch."""
         if self.semiring != "reach":
             return self._init_weighted(ctx, state, root)
         dev = state.depth.device
@@ -1030,9 +1072,11 @@ def _level_plane(sr, nv: int, idx: torch.Tensor, vals: torch.Tensor
                  ) -> torch.Tensor:
     """The (V,) level plane: the arrivals ``vals`` ⊕-combined per target
     vertex ``idx`` (``nv`` drops a lane), the identity where none
-    arrived."""
-    return scatter_combine(sr, torch.full((nv,), sr.identity,
-                                          dtype=torch.float32,
+    arrived.  (L, m) arrivals give (L, V) planes, each lane's arrivals in
+    its own row and its dropped ones on its own spare slot; ``idx`` is
+    (L, m) or one (m,) index shared by the lanes."""
+    return scatter_combine(sr, torch.full(vals.shape[:-1] + (nv,),
+                                          sr.identity, dtype=torch.float32,
                                           device=vals.device), idx, vals)
 
 
@@ -1040,10 +1084,9 @@ def _fold_level(sr, lvl: torch.Tensor, idx: torch.Tensor,
                 valid: torch.Tensor, vertex_val: torch.Tensor
                 ) -> tuple[torch.Tensor, torch.Tensor]:
     """⊕-fold the level plane into the accumulator of the vertices that
-    received an arrival (``idx`` where ``valid``).  Returns (received,
-    vertex_val)."""
-    nv = vertex_val.shape[0]
-    received = or_combine(torch.zeros((nv,), dtype=torch.bool,
+    received an arrival (``idx`` where ``valid``), lane by lane for (L, V)
+    planes.  Returns (received, vertex_val)."""
+    received = or_combine(torch.zeros(vertex_val.shape, dtype=torch.bool,
                                       device=lvl.device), idx, valid)
     return received, torch.where(received,
                                  elem_combine(sr, vertex_val, lvl),
@@ -1053,10 +1096,11 @@ def _fold_level(sr, lvl: torch.Tensor, idx: torch.Tensor,
 def _combine_arrivals(ctx: Context, sr, state: TraversalState,
                       slots: torch.Tensor):
     """The positional frontier's arrivals (``slots`` = arange(F))
-    ⊕-combined per target vertex and folded into the accumulator.  Returns
-    (valid, targets, clamped targets, level plane, vertex_val)."""
-    nv = state.vertex_val.shape[0]
-    valid = slots < state.frontier_count
+    ⊕-combined per target vertex and folded into the accumulator, each
+    lane of a batch into its own row.  Returns (valid, targets, clamped
+    targets, level plane, vertex_val)."""
+    nv = state.vertex_val.shape[-1]
+    valid = slots < state.frontier_count[..., None]
     t = _join_dst_at(ctx, state.frontier_pos)
     safe = t.clamp(0, nv - 1)
     idx = torch.where(valid, safe, nv)
@@ -1081,33 +1125,36 @@ class WeightedExpand(Operator):
     vertices, so the driver's ``frontier_count > 0`` test is value
     stabilization; walk semirings re-expand every receiver.  ``expand_fn``
     plugs a kernel into the IndexJoin (the reference's operator has no such
-    slot; the expansion is integer, so the result is the same)."""
+    slot; the expansion is integer, so the result is the same).  In a
+    batch every lane combines, tickets and expands on its own row, the
+    expansion in one call for all lanes."""
 
     semiring: str
     expand_fn: Optional[Callable] = None
 
     def step(self, ctx, state):
         sr = get_semiring(self.semiring)
-        cap = state.frontier_pos.shape[0]
-        nv = state.vertex_val.shape[0]
+        cap = state.frontier_pos.shape[-1]
+        nv = state.vertex_val.shape[-1]
         slots = torch.arange(cap, dtype=torch.int32,
                              device=state.frontier_pos.device)
         valid, t, safe, lvl, new_vv = _combine_arrivals(ctx, sr, state,
                                                         slots)
         if sr.improving:                 # frontier = strictly improved
-            eligible = valid & (lvl < state.vertex_val)[safe]
+            eligible = valid & lane_take(lvl < state.vertex_val, safe)
         else:                            # frontier = every receiver
             eligible = valid
-        ticket = torch.full((nv + 1,), cap, dtype=torch.int32,
-                            device=slots.device)
-        ticket.scatter_reduce_(0, torch.where(eligible, safe, nv).long(),
+        # one ticket row per lane, each with its own spare slot nv
+        ticket = torch.full(state.vertex_val.shape[:-1] + (nv + 1,), cap,
+                            dtype=torch.int32, device=slots.device)
+        ticket.scatter_reduce_(-1, torch.where(eligible, safe, nv).long(),
                                torch.where(eligible, slots, cap), "amin")
-        winner = eligible & (ticket[safe] == slots)
+        winner = eligible & (lane_take(ticket, safe) == slots)
         targets = torch.where(winner, t, -1)
         epos, total, ovf = _expand_join(ctx, targets, winner, cap,
                                         self.expand_fn)
-        sval = lvl[_join_src_at(ctx, epos).clamp(0, nv - 1)]
-        fval = torch.where(slots < total,
+        sval = lane_take(lvl, _join_src_at(ctx, epos).clamp(0, nv - 1))
+        fval = torch.where(slots < total[..., None],
                            propagate(sr, sval, _edge_weight_at(ctx, epos)),
                            sr.identity)
         return state._replace(frontier_pos=epos, frontier_count=total,
@@ -1131,8 +1178,11 @@ class WeightedDenseStep(Operator):
     (``spmm_segment_sorted``) in, inactive edges padded with the kernel's
     own ``src = V``.  The edges' destination order is fixed, so ``init``
     sorts them ONCE per request (``state.segments``) and each level only
-    masks the sorted sources.  Every other ⊕, and a step without a kernel,
-    uses :func:`scatter_combine`.  Single-direction views only.
+    masks the sorted sources; a batch hands the kernel every lane's values
+    and frontier bits in one call, which masks each lane's sources itself.
+    Every other ⊕, and a step without a kernel, uses
+    :func:`scatter_combine`, each lane into its own row.  Single-direction
+    views only.
 
     Where the reference drops an edge outside the frontier from its
     scatters, here it scatters the ⊕-identity (or ``False``) onto its own
@@ -1150,7 +1200,7 @@ class WeightedDenseStep(Operator):
     def init(self, ctx, state, root):
         if not self._uses_kernel(get_semiring(self.semiring)):
             return state
-        nv = state.vertex_val.shape[0]
+        nv = state.vertex_val.shape[-1]
         s = segments(ctx.join_dst.clamp(0, nv - 1), nv)
         src = ctx.join_src.clamp(0, nv - 1)[s.order]
         return state._replace(segments=(src, s.seg,
@@ -1159,17 +1209,23 @@ class WeightedDenseStep(Operator):
 
     def step(self, ctx, state):
         sr = get_semiring(self.semiring)
-        nv = state.vertex_val.shape[0]
+        nv = state.vertex_val.shape[-1]
         src = ctx.join_src.clamp(0, nv - 1)
         dst = ctx.join_dst.clamp(0, nv - 1)
-        hit = state.frontier_bits[src]
+        hit = state.frontier_bits[..., src]
         if self._uses_kernel(sr):
             s_src, s_dst, s_w, offsets = state.segments
-            s_src = torch.where(state.frontier_bits[s_src], s_src, nv)
-            lvl = self.spmm_fn(state.frontier_val[:, None], s_src, s_dst,
-                               s_w, offsets)[:, 0]
+            if state.frontier_bits.dim() == 1:
+                s_src = torch.where(state.frontier_bits[s_src], s_src, nv)
+                lvl = self.spmm_fn(state.frontier_val[:, None], s_src,
+                                   s_dst, s_w, offsets)[:, 0]
+            else:   # every lane in one call, masked by its frontier bits
+                lvl = self.spmm_fn(state.frontier_val[..., None], s_src,
+                                   s_dst, s_w, offsets,
+                                   state.frontier_bits.contiguous())[..., 0]
         else:
-            prop = propagate(sr, state.frontier_val[src], _edge_weights(ctx))
+            prop = propagate(sr, state.frontier_val[..., src],
+                             _edge_weights(ctx))
             lvl = _level_plane(sr, nv, dst,
                                torch.where(hit, prop, sr.identity))
         received, new_vv = _fold_level(sr, lvl, dst, hit, state.vertex_val)
@@ -1182,7 +1238,7 @@ class WeightedDenseStep(Operator):
             vertex_val=new_vv, visited=state.visited | nxt,
             emitted=state.emitted | hit,
             emit_depth=torch.where(new, state.depth, state.emit_depth),
-            frontier_count=nxt.sum(dtype=torch.int32))
+            frontier_count=nxt.sum(-1, dtype=torch.int32))
 
     def describe(self):
         how = ("spmm_segment kernel" if self.spmm_fn is not None
@@ -1234,7 +1290,9 @@ class AppendUnionAll(Operator):
     block appended: ``'pos'`` the real positions, ``'vals'`` the tuple
     columns ``cols``, ``'rows'`` the full rows (one ``'rows'`` buffer).
     The first value append allocates the result buffers in the values'
-    dtypes.  ``init`` appends the seed block as level ``depth`` unless
+    dtypes; in a batch each lane's block lands at that lane's own count
+    (:func:`append_values`).  ``init`` appends the seed block as level
+    ``depth`` unless
     ``append_seed`` is off; ``step`` appends level ``depth +
     step_tag_offset``."""
 
@@ -1262,22 +1320,31 @@ class AppendUnionAll(Operator):
             return state._replace(result_pos=rpos, result_count=rcount,
                                   result_depth=rdepth,
                                   overflow=state.overflow | ovf)
-        if state.result_count.dim():
-            raise NotImplementedError("value appends run one root at a time")
         if self.rep == "vals":
             vals = {k: state.frontier_vals[k] for k in self.cols}
         else:
             vals = {"rows": state.frontier_rows}
         cap_r = state.result_depth.shape[-1]
+        lead = state.result_count.dim()       # 1 with a lane axis
         bufs = state.result_vals
         if not bufs:     # the first append allocates the result buffers
-            bufs = {k: torch.zeros((cap_r + v.shape[0],) + v.shape[1:],
+            bufs = {k: torch.zeros(v.shape[:lead]
+                                   + (cap_r + v.shape[lead],)
+                                   + v.shape[lead + 1:],
                                    dtype=v.dtype, device=v.device)
                     for k, v in vals.items()}
+        appended = state.host.appended
+        if lead:
+            lanes = state.result_count.shape[0]
+            offset = [min(a, cap_r) for a in (
+                appended if isinstance(appended, list)
+                else [appended] * lanes)]
+        else:
+            offset = min(appended, cap_r)
         bufs, rcount, ovf = append_values(
             bufs, state.result_count, vals, state.frontier_count, cap_r,
-            min(state.host.appended, cap_r))
-        block_cap = next(iter(vals.values())).shape[0]
+            offset)
+        block_cap = next(iter(vals.values())).shape[lead]
         rdepth = _tag_depths(state.result_depth, state.result_count,
                              block_cap, state.frontier_count, tag)
         return state._replace(result_vals=bufs, result_count=rcount,
@@ -1297,8 +1364,9 @@ def _drain_value_frontier(ctx: Context, pipeline: "Pipeline",
     than convergence) stops the loop, the last expansion's rows are in the
     result but their values still sit in ``frontier_val``.  The dense step
     combines in the level it emits, so only the positional finisher needs
-    this; it changes nothing on a converged (empty) frontier."""
-    slots = torch.arange(state.frontier_pos.shape[0], dtype=torch.int32,
+    this; it changes nothing on a converged (empty) frontier.  A batch
+    drains each lane's frontier into its own row."""
+    slots = torch.arange(state.frontier_pos.shape[-1], dtype=torch.int32,
                          device=state.frontier_pos.device)
     return _combine_arrivals(ctx, get_semiring(pipeline.semiring), state,
                              slots)[-1]
@@ -1331,8 +1399,10 @@ def _no_positions(state: TraversalState) -> torch.Tensor:
 
 
 def _result_rows(state: TraversalState, name: str) -> torch.Tensor:
-    """Result buffer ``name`` without its spare rows."""
-    return state.result_vals[name][:state.result_depth.shape[-1]]
+    """Result buffer ``name`` without its spare rows (each lane's, in a
+    batch)."""
+    return state.result_vals[name].narrow(state.result_depth.dim() - 1, 0,
+                                          state.result_depth.shape[-1])
 
 
 @dataclasses.dataclass(frozen=True)
@@ -1379,7 +1449,9 @@ class TopLevelJoin:
     Where ids repeat, the reference's scatter keeps the last row; here an
     ``amax`` scatter of the row numbers keeps the same one on every
     device.  An id outside [-E, E) is dropped and one in [-E, 0) counts
-    from the end once, as a JAX ``.at[]`` does."""
+    from the end once, as a JAX ``.at[]`` does.  A batch probes the one
+    array with every lane's ids, and its join is one take of every
+    lane's rows."""
 
     cols: Tuple[str, ...]
     inner: object
@@ -1400,7 +1472,7 @@ class TopLevelJoin:
             e, dtype=torch.int32, device=idx.device), "amax")
         cap_r = slim.positions.shape[-1]
         live = torch.arange(cap_r, dtype=torch.int32,
-                            device=idx.device) < slim.count
+                            device=idx.device) < slim.count[..., None]
         ids = torch.where(live, slim.values["id"].to(torch.int32), -1)
         pos = torch.where(live, probe[ids.clamp(0, e - 1)], e)
         if self.use_rows:
@@ -1645,7 +1717,7 @@ def execute(pipeline: Pipeline, ctx: Context, root: int, num_vertices: int
 
 def fixed_point_batch(pipeline: Pipeline, ctx: Context, roots,
                       num_vertices: int) -> BFSResult:
-    """Run a reach pipeline for many roots at once: the state carries a
+    """Run a pipeline for many roots at once: the state carries a
     leading lane axis, the operators step every lane still in the loop
     together, and the level's scalars come to the host once per level for
     all of them.  A lane whose frontier has died (or that reached the
@@ -1662,10 +1734,15 @@ def fixed_point_batch(pipeline: Pipeline, ctx: Context, roots,
     lanes = list(range(len(roots)))       # the lanes still in the loop
     retired = []                          # (lanes, their state)
     depths = [0] * len(roots)             # levels each lane executed
+    appended = [0] * len(roots)           # rows each lane appended
     for depth in range(limit):
         if not lanes:
             break
-        state = state._replace(host=_host_counts(pipeline, state, depth))
+        host = _host_counts(pipeline, state, depth)
+        for lane, f in zip(lanes, host.frontier):
+            appended[lane] += f
+        state = state._replace(host=host._replace(
+            appended=[appended[lane] for lane in lanes]))
         live = [i for i, f in enumerate(state.host.frontier) if f > 0]
         if len(live) < len(lanes):
             dead = [i for i, f in enumerate(state.host.frontier) if f <= 0]

@@ -110,16 +110,21 @@ def or_combine(arr: torch.Tensor, idx: torch.Tensor, vals: torch.Tensor
 def scatter_combine(sr: Semiring, arr: torch.Tensor, idx: torch.Tensor,
                     vals: torch.Tensor) -> torch.Tensor:
     """⊕-scatter ``vals`` into ``arr`` at ``idx`` (the dense combine), with
-    ``arr``'s own values included.  ``arr`` is not modified.  On CUDA the
-    sum and product scatters use atomics: with several values per index
-    their order, and so the last bits, can change from run to run."""
+    ``arr``'s own values included.  ``arr`` is not modified.  An ``(L,
+    n)`` ``arr`` scatters each lane's row of ``vals`` into its own row
+    (its own spare slot included), at ``idx`` of the same shape or at one
+    ``(m,)`` index shared by every lane.  On CUDA the sum and product
+    scatters use atomics: with several values per index their order, and
+    so the last bits, can change from run to run."""
     if sr.combine not in _SCATTER_REDUCE:
         raise ValueError(f"unknown combine {sr.combine!r}")
-    n = arr.shape[0]
-    ext = torch.cat([arr, arr.new_full((1,), sr.identity)])
-    ext.scatter_reduce_(0, _drop_slots(idx, n), vals.to(arr.dtype),
-                        _SCATTER_REDUCE[sr.combine], include_self=True)
-    return ext[:n]
+    n = arr.shape[-1]
+    ext = torch.cat([arr, arr.new_full(arr.shape[:-1] + (1,), sr.identity)],
+                    -1)
+    ext.scatter_reduce_(-1, _drop_slots(idx, n).expand(vals.shape),
+                        vals.to(arr.dtype), _SCATTER_REDUCE[sr.combine],
+                        include_self=True)
+    return ext[..., :n]
 
 
 def elem_combine(sr: Semiring, a: torch.Tensor, b: torch.Tensor

@@ -66,6 +66,20 @@
 //       by the same fixed tree (slot j takes partials j, j + slots, ...)
 //       and writes out[hub].  Blocks whose tile_row is -1 return after
 //       one load.
+// Lanes.  One call may carry L lanes (a batch of roots) that share src, w
+// and offsets; each lane has its own x (N, D), its own out (num_out, D),
+// its own scratch and, optionally, its own source mask (N,) bytes: an
+// edge whose source has a zero mask byte counts as padding, exactly as
+// src = N does.  blockIdx.y is the lane (at most 65,535), and each lane
+// keeps the one-lane tile plan (P and H from D alone), so a lane sums in
+// the order of a one-lane call on its own x, and L = 1 with no mask is
+// that call.  The mask is read in the kernel (one byte a live edge,
+// from an (L, N) plane that stays in L2) rather than written into an
+// (L, E) masked src by the caller (8 L E bytes a level more).  A batch
+// (more than one lane, or a mask) is a template flag, so the one-lane call
+// compiles as it did before the lane axis (the lane offsets held in
+// registers spilled its rows kernel, 19% slower).
+//
 // One C call issues the two kernels on one stream, the second only when
 // E > H (the host knows E), so a call is 1 or 2 device launches.  No host
 // sync, no fill, no atomics on the output, no library kernel; the scratch
@@ -83,6 +97,7 @@
 // whose rows are all medium: it sums them one after another (up to 256
 // rows of H = 8,192 edges at D = 1).
 #include <cstdint>
+#include <type_traits>
 
 #include <cuda_runtime.h>
 
@@ -152,38 +167,61 @@ struct Vec<true> {
 // Edge i's term, in two steps so that a thread can have several loads in
 // flight: ref(i) loads src[i] and w[i], value(ref, u) loads unit u of the
 // x row and gives w[i] * x[src[i], u], or 0 for a padded source.
-template <bool kVec4>
+template <bool kVec4, bool kLanes>
 struct EdgeTerms {
   using T = typename Vec<kVec4>::T;
   struct Ref {
     int32_t s;
     float w;
   };
-  const T* __restrict__ x;   // (N, units)
+  const T* __restrict__ x;   // (N, units): this lane's
   const int32_t* __restrict__ src;
   const float* __restrict__ w;
+  const uint8_t* __restrict__ mask;   // (N,) this lane's, or null
   int32_t num_nodes;
   int32_t units;
+
+  // Source s is not masked off (a one-lane call has no mask).
+  __device__ __forceinline__ bool unmasked(int32_t s) const {
+    return !kLanes || mask == nullptr || __ldg(mask + s);
+  }
+  // A source that contributes: in [0, N) and not masked off.
+  __device__ __forceinline__ bool live(int32_t s) const {
+    return s >= 0 && s < num_nodes && unmasked(s);
+  }
+
+  // This term set moved to lane `lane` of an (L, N, units) x and an
+  // (L, N) mask; a one-lane call's stays as it is.
+  __device__ __forceinline__ EdgeTerms at_lane(int64_t lane) const {
+    EdgeTerms t = *this;
+    if (kLanes) {
+      t.x += lane * num_nodes * units;
+      if (t.mask != nullptr) t.mask += lane * num_nodes;
+    }
+    return t;
+  }
 
   __device__ __forceinline__ Ref ref(int64_t i) const {
     return {__ldg(src + i), __ldg(w + i)};
   }
   __device__ __forceinline__ T value(const Ref& r, int32_t u) const {
-    const bool live = r.s >= 0 && r.s < num_nodes;
-    const T v = live ? __ldg(x + static_cast<int64_t>(r.s) * units + u)
-                     : Vec<kVec4>::zero();
-    return live ? Vec<kVec4>::scale(v, r.w) : Vec<kVec4>::zero();
+    const bool in = r.s >= 0 && r.s < num_nodes;
+    // the x row and the mask byte are loaded side by side
+    const T v = in ? __ldg(x + static_cast<int64_t>(r.s) * units + u)
+                   : Vec<kVec4>::zero();
+    const bool on = in && unmasked(r.s);
+    return on ? Vec<kVec4>::scale(v, r.w) : Vec<kVec4>::zero();
   }
 
   // Unit u of the sum of terms lo, lo + 1, ... below hi, in that order
   // from +0, one term at a time: w[i] and the x row are read only for a
-  // live source (skipping a padded term's +0 changes no sum).
+  // live source (skipping a padded or masked term's +0 changes no sum).
   __device__ __forceinline__ T live_sum(int64_t lo, int64_t hi,
                                         int32_t u) const {
     T acc = Vec<kVec4>::zero();
     for (int64_t i = lo; i < hi; ++i) {
       const int32_t s = __ldg(src + i);
-      if (s >= 0 && s < num_nodes) {
+      if (live(s)) {
         acc = Vec<kVec4>::add(acc, Vec<kVec4>::scale(
             __ldg(x + static_cast<int64_t>(s) * units + u), __ldg(w + i)));
       }
@@ -297,8 +335,8 @@ __device__ __forceinline__ int64_t warp_upper_bound(
 // k * P, writes tile_row[k] (that row if it is a hub, else -1) and for a
 // hub sums the hub's edges of tile k, with the hub's prefix at its first
 // tile start, into partial[k, :].
-template <bool kVec4>
-__device__ void hub_tile(const EdgeTerms<kVec4>& term,
+template <bool kVec4, bool kLanes>
+__device__ void hub_tile(const EdgeTerms<kVec4, kLanes>& term,
                          const int32_t* __restrict__ offsets,
                          typename Vec<kVec4>::T* __restrict__ partial,
                          int32_t* __restrict__ tile_row, int64_t num_out,
@@ -339,25 +377,34 @@ __device__ void hub_tile(const EdgeTerms<kVec4>& term,
 // (the common case) meets one barrier.  The tile path would raise the
 // kernel to 40 registers (59 with float4s); the bound keeps it at 32 (48),
 // 8 (5) blocks an SM, for the row blocks, which are latency-bound.
-template <bool kVec4>
+template <bool kVec4, bool kLanes>
 __global__ void __launch_bounds__(kThreads, kVec4 ? 5 : 8)
-spmm_segment_rows(EdgeTerms<kVec4> term, const int32_t* __restrict__ offsets,
+spmm_segment_rows(EdgeTerms<kVec4, kLanes> lane0,
+                  const int32_t* __restrict__ offsets,
                   typename Vec<kVec4>::T* __restrict__ out,
-                  typename Vec<kVec4>::T* __restrict__ partial,
-                  int32_t* __restrict__ tile_row, int64_t num_out, Layout l,
-                  int tile_shift, int64_t hub_edges, int64_t num_tiles) {
+                  float* __restrict__ scratch, int64_t scratch_stride,
+                  int64_t num_out, Layout l, int tile_shift,
+                  int64_t hub_edges, int64_t num_tiles) {
   using T = typename Vec<kVec4>::T;
   __shared__ int32_t medium_rows[kThreads];
   __shared__ int num_medium;
   __shared__ int64_t bounds[3];
   __shared__ float4 wsum_raw[kWarps * 32];
   T* wsum = reinterpret_cast<T*>(wsum_raw);
+  // this block's lane: its x and mask, then its scratch or output rows
+  // (a one-lane call's lane is the constant 0: no register holds it)
+  const int64_t lane = kLanes ? blockIdx.y : 0;
+  const EdgeTerms<kVec4, kLanes> term = lane0.at_lane(lane);
 
   if (blockIdx.x < num_tiles) {
-    hub_tile<kVec4>(term, offsets, partial, tile_row, num_out, l, tile_shift,
-                    hub_edges, blockIdx.x, wsum, bounds);
+    float* const own = scratch + lane * scratch_stride;
+    hub_tile<kVec4, kLanes>(
+        term, offsets, reinterpret_cast<T*>(own),
+        reinterpret_cast<int32_t*>(own + num_tiles * l.units * (kVec4 ? 4 : 1)),
+        num_out, l, tile_shift, hub_edges, blockIdx.x, wsum, bounds);
     return;
   }
+  out += lane * num_out * l.units;
   const int tid = threadIdx.x;
   const int c = tid & (l.lanes - 1);
   const int j = tid / l.lanes;   // this thread's slot and row r0 + j
@@ -396,13 +443,22 @@ spmm_segment_rows(EdgeTerms<kVec4> term, const int32_t* __restrict__ offsets,
 // partials in tile order and writes the hub's output row.
 template <bool kVec4>
 __global__ void __launch_bounds__(kThreads)
-spmm_segment_hub_fixup(PartialTerms<kVec4> partials,
+spmm_segment_hub_fixup(const float* __restrict__ scratch,
+                       int64_t scratch_stride,
                        const int32_t* __restrict__ offsets,
-                       const int32_t* __restrict__ tile_row,
-                       typename Vec<kVec4>::T* __restrict__ out, Layout l,
-                       int tile_shift) {
+                       typename Vec<kVec4>::T* __restrict__ out,
+                       int64_t num_out, Layout l, int tile_shift,
+                       int64_t num_tiles) {
   using T = typename Vec<kVec4>::T;
   __shared__ float4 wsum_raw[kWarps * 32];
+  // this block's lane: its partials, tile_row and output rows
+  const int64_t lane = blockIdx.y;
+  const float* const own = scratch + lane * scratch_stride;
+  const PartialTerms<kVec4> partials{reinterpret_cast<const T*>(own),
+                                     l.units};
+  const int32_t* const tile_row = reinterpret_cast<const int32_t*>(
+      own + num_tiles * l.units * (kVec4 ? 4 : 1));
+  out += lane * num_out * l.units;
   const int64_t k = blockIdx.x;
   const int32_t v = __ldg(tile_row + k);
   if (v < 0) return;
@@ -414,79 +470,90 @@ spmm_segment_hub_fixup(PartialTerms<kVec4> partials,
                          reinterpret_cast<T*>(wsum_raw));
 }
 
-template <bool kVec4>
+template <bool kVec4, bool kLanes>
 int launch(const void* x, const void* src, const void* w,
-           const int32_t* offsets, void* out, float* scratch,
-           int64_t num_out, int32_t num_nodes, int32_t dim, int tile_shift,
-           int64_t hub_edges, int64_t num_tiles, cudaStream_t s) {
+           const int32_t* offsets, const uint8_t* mask, void* out,
+           float* scratch, int64_t scratch_stride, int64_t num_out,
+           int32_t num_nodes, int32_t dim, int tile_shift, int64_t hub_edges,
+           int64_t num_tiles, int64_t lanes, cudaStream_t s) {
   using T = typename Vec<kVec4>::T;
   const Layout l = make_layout(dim, kVec4);
-  const EdgeTerms<kVec4> term{static_cast<const T*>(x),
-                              static_cast<const int32_t*>(src),
-                              static_cast<const float*>(w), num_nodes,
-                              l.units};
-  auto* partial = reinterpret_cast<T*>(scratch);
-  auto* tile_row = reinterpret_cast<int32_t*>(scratch + num_tiles * dim);
+  const EdgeTerms<kVec4, kLanes> term{
+      static_cast<const T*>(x), static_cast<const int32_t*>(src),
+      static_cast<const float*>(w), mask, num_nodes, l.units};
   const int64_t row_blocks = (num_out + l.slots - 1) / l.slots;
-  spmm_segment_rows<kVec4>
-      <<<static_cast<unsigned>(num_tiles + row_blocks), kThreads, 0, s>>>(
-          term, offsets, static_cast<T*>(out), partial, tile_row, num_out, l,
-          tile_shift, hub_edges, num_tiles);
+  const dim3 rows_grid(static_cast<unsigned>(num_tiles + row_blocks),
+                       static_cast<unsigned>(lanes));
+  spmm_segment_rows<kVec4, kLanes><<<rows_grid, kThreads, 0, s>>>(
+      term, offsets, static_cast<T*>(out), scratch, scratch_stride, num_out,
+      l, tile_shift, hub_edges, num_tiles);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || num_tiles == 0) return static_cast<int>(err);
-  spmm_segment_hub_fixup<kVec4><<<static_cast<unsigned>(num_tiles), kThreads,
-                                  0, s>>>(
-      PartialTerms<kVec4>{partial, l.units}, offsets, tile_row,
-      static_cast<T*>(out), l, tile_shift);
+  const dim3 fixup_grid(static_cast<unsigned>(num_tiles),
+                        static_cast<unsigned>(lanes));
+  spmm_segment_hub_fixup<kVec4><<<fixup_grid, kThreads, 0, s>>>(
+      scratch, scratch_stride, offsets, static_cast<T*>(out), num_out, l,
+      tile_shift, num_tiles);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// x (N, D) float32, src (E,) int32 and w (E,) float32 in destination
-// order, offsets (num_out + 1,) int32 non-decreasing within [0, E); out
-// (num_out, D) float32 written.  scratch holds num_tiles * (D + 1)
-// 4-byte words: partial (num_tiles, D) float32, then tile_row
-// (num_tiles,) int32, with num_tiles = ceil(E / P) when E > H and 0
-// otherwise (P = tile_edges, a power of two above S; H = hub_edges >= 2P).
-// The caller guarantees num_out, N, D and E in [0, 2^31).  Returns the
+// x (L, N, D) float32, src (E,) int32 and w (E,) float32 in destination
+// order, offsets (num_out + 1,) int32 non-decreasing within [0, E), mask
+// (L, N) bytes or null (no mask); out (L, num_out, D) float32 written.
+// Lane l's scratch starts scratch_stride 4-byte words after lane l - 1's
+// (a multiple of 4) and holds num_tiles * (D + 1) of them: partial
+// (num_tiles, D) float32, then tile_row (num_tiles,) int32, with
+// num_tiles = ceil(E / P) when E > H and 0 otherwise (P = tile_edges, a
+// power of two above S; H = hub_edges >= 2P).  The caller guarantees
+// num_out, N, D and E in [0, 2^31) and lanes in [0, 65,535].  Returns the
 // first launch error, or 0.
 extern "C" int spmm_segment_launch(const void* x, const void* src,
                                    const void* w, const void* offsets,
-                                   void* out, void* scratch, int64_t num_out,
-                                   int64_t num_nodes, int64_t dim,
-                                   int64_t num_edges, int64_t tile_edges,
-                                   int64_t hub_edges, int64_t num_tiles,
+                                   const void* mask, void* out,
+                                   void* scratch, int64_t scratch_stride,
+                                   int64_t num_out, int64_t num_nodes,
+                                   int64_t dim, int64_t num_edges,
+                                   int64_t tile_edges, int64_t hub_edges,
+                                   int64_t num_tiles, int64_t lanes,
                                    void* stream) {
   constexpr int64_t kMax = int64_t{1} << 31;
+  constexpr int64_t kMaxLanes = 65535;   // gridDim.y
   const bool tiled = num_edges > hub_edges;
   if (num_out < 0 || num_out >= kMax || num_nodes < 0 || num_nodes >= kMax ||
       dim < 0 || dim >= kMax || num_edges < 0 || num_edges >= kMax ||
       tile_edges <= kShortRow || tile_edges >= kMax ||
       (tile_edges & (tile_edges - 1)) != 0 || hub_edges < 2 * tile_edges ||
-      num_tiles != (tiled ? (num_edges + tile_edges - 1) / tile_edges : 0)) {
+      num_tiles != (tiled ? (num_edges + tile_edges - 1) / tile_edges : 0) ||
+      lanes < 0 || lanes > kMaxLanes || scratch_stride % 4 != 0 ||
+      scratch_stride < num_tiles * (dim + 1)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (num_out == 0 || dim == 0) return 0;
+  if (num_out == 0 || dim == 0 || lanes == 0) return 0;
   int tile_shift = 0;
   while ((int64_t{1} << tile_shift) < tile_edges) ++tile_shift;
   const auto s = static_cast<cudaStream_t>(stream);
   const auto* offsets_ = static_cast<const int32_t*>(offsets);
+  const auto* mask_ = static_cast<const uint8_t*>(mask);
   auto* scratch_ = static_cast<float*>(scratch);
   const bool vec4 = dim % 4 == 0 &&
                     reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
                     reinterpret_cast<uintptr_t>(out) % 16 == 0 &&
                     reinterpret_cast<uintptr_t>(scratch) % 16 == 0;
-  if (vec4) {
-    return launch<true>(x, src, w, offsets_, out, scratch_, num_out,
-                        static_cast<int32_t>(num_nodes),
-                        static_cast<int32_t>(dim), tile_shift, hub_edges,
-                        num_tiles, s);
-  }
-  return launch<false>(x, src, w, offsets_, out, scratch_, num_out,
-                       static_cast<int32_t>(num_nodes),
-                       static_cast<int32_t>(dim), tile_shift, hub_edges,
-                       num_tiles, s);
+  // a batch (more than one lane, or a mask) is a template flag: the
+  // one-lane call keeps the code and registers it had before the lane axis
+  const bool batch = lanes > 1 || mask_ != nullptr;
+  auto run = [&](auto vec4_tag, auto batch_tag) {
+    return launch<decltype(vec4_tag)::value, decltype(batch_tag)::value>(
+        x, src, w, offsets_, mask_, out, scratch_, scratch_stride, num_out,
+        static_cast<int32_t>(num_nodes), static_cast<int32_t>(dim),
+        tile_shift, hub_edges, num_tiles, lanes, s);
+  };
+  using Yes = std::true_type;
+  using No = std::false_type;
+  if (vec4) return batch ? run(Yes{}, Yes{}) : run(Yes{}, No{});
+  return batch ? run(No{}, Yes{}) : run(No{}, No{});
 }
 
 extern "C" const char* spmm_segment_error_string(int code) {

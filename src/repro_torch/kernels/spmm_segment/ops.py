@@ -12,8 +12,10 @@ launches or raises.
 The two halves are public for a caller whose destinations stay fixed over
 many calls: :func:`segments` sorts once, :func:`spmm_segment_sorted` runs
 the kernel on edges already in that order (the weighted dense step sorts
-once per request, not once per level).  ``LAUNCHES`` counts kernel
-launches.
+once per request, not once per level).  It also takes a lane axis: (L, N,
+D) ``x`` and an (L, N) source mask, the lanes of a batch of roots over
+the same edges, in one kernel call.  ``LAUNCHES`` counts kernel calls,
+one for all lanes.
 """
 from __future__ import annotations
 
@@ -21,7 +23,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from .ref import spmm_segment_ref
+from .ref import spmm_segment_lanes_ref, spmm_segment_ref
 from .spmm_segment import spmm_segment_cuda
 
 LAUNCHES = 0
@@ -45,15 +47,25 @@ def segments(dst: torch.Tensor, num_out: int) -> Segments:
 
 
 def spmm_segment_sorted(x: torch.Tensor, src: torch.Tensor, seg: torch.Tensor,
-                        weights: torch.Tensor, offsets: torch.Tensor
-                        ) -> torch.Tensor:
+                        weights: torch.Tensor, offsets: torch.Tensor,
+                        mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """:func:`spmm_segment` on edges in :func:`segments` order: ``src``,
     ``seg`` and ``weights`` are permuted by ``order``.  The kernel reads
-    ``offsets`` and no ``seg``; the plain version reads ``seg``."""
+    ``offsets`` and no ``seg``; the plain version reads ``seg``.  With
+    (L, N, D) ``x`` every lane sums the same edges over its own ``x``, and
+    an optional (L, N) bool ``mask`` counts an edge whose source is masked
+    off in its lane as padding: (L, num_out, D) in one kernel call, no
+    launch for L = 0.  A mask goes with the lane axis only."""
     global LAUNCHES
+    if mask is not None and x.dim() != 3:
+        raise ValueError(f"a source mask needs (L, N, D) x, got "
+                         f"{tuple(x.shape)}")
     if x.device.type == "cpu" and src.device.type == "cpu":
-        return spmm_segment_ref(x, src, seg, weights, offsets.shape[0] - 1)
-    out = spmm_segment_cuda(x, src, weights, offsets)
+        num_out = offsets.shape[0] - 1
+        if x.dim() == 3:
+            return spmm_segment_lanes_ref(x, src, seg, weights, num_out, mask)
+        return spmm_segment_ref(x, src, seg, weights, num_out)
+    out = spmm_segment_cuda(x, src, weights, offsets, mask)
     if out.numel():
         LAUNCHES += 1
     return out

@@ -1,7 +1,8 @@
 """Plain PyTorch version of the fused gather-scale-segment-sum (SpMM).
 
 It is also the engine's CPU combine wherever a caller plugs the kernel
-wrapper in: gather, then scale, then one ``index_add_``.
+wrapper in: gather, then scale, then one ``index_add_``;
+:func:`spmm_segment_lanes_ref` is the lane axis, a loop of it.
 
 :func:`spmm_tile_case` makes the seeded inputs that cut the card kernel's
 tiles of ``P`` edges (``tile_plan``) in every way its design can go wrong,
@@ -29,6 +30,26 @@ def spmm_segment_ref(x: torch.Tensor, src: torch.Tensor, seg: torch.Tensor,
     slot = torch.where((seg >= 0) & (seg < num_out), seg, num_out).long()
     out = x.new_zeros((num_out + 1, d)).index_add_(0, slot, rows)
     return out[:num_out]
+
+
+def spmm_segment_lanes_ref(x: torch.Tensor, src: torch.Tensor,
+                           seg: torch.Tensor, weights: torch.Tensor,
+                           num_out: int, mask: torch.Tensor | None = None
+                           ) -> torch.Tensor:
+    """The lane axis: lane l of (L, N, D) ``x`` through
+    :func:`spmm_segment_ref` over the shared edges, with the sources that
+    lane l of the optional (L, N) bool ``mask`` masks off padded to N.
+    Returns (L, num_out, D)."""
+    lanes, n, d = x.shape
+    out = []
+    for lane in range(lanes):
+        s = src
+        if mask is not None:
+            s = torch.where(mask[lane][src.clamp(0, n - 1).long()], src, n)
+        out.append(spmm_segment_ref(x[lane], s, seg, weights, num_out))
+    if not out:
+        return x.new_zeros((0, num_out, d))
+    return torch.stack(out)
 
 
 # The cases of :func:`spmm_tile_case`.

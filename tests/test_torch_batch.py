@@ -213,18 +213,36 @@ def test_no_roots_matches_reference(data, ref_batch, engine):
         assert tuple(got.values[k].shape) == tuple(np.asarray(v).shape)
 
 
-def test_weighted_batch_raises_not_implemented(data):
-    """A weighted query names the slice that brings it; an engine with no
-    value plane raises ValueError first, as ``run_query`` does."""
-    _, ds = data
-    for engine in ("precursive", "bitmap"):
-        q = port.RecursiveQuery(engine, 4, 0, port.EngineCaps(64, 256),
-                                workload="shortest_path", weight_col="name")
-        with pytest.raises(NotImplementedError,
-                           match="batched roots, weighted"):
-            port.run_query_batch(q, ds, [0, 1])
+@pytest.mark.parametrize("engine", ("precursive", "bitmap"))
+def test_weighted_batch_matches_reference(engine):
+    """A weighted batch over this module's graph (the star, the chain, the
+    leaf, the clipped and the repeated roots) with a weight column:
+    shortest paths, each lane equal to the reference's lane and, bit for
+    bit, to the port's single run of its root; an engine with no value
+    plane still raises ValueError, as ``run_query`` does."""
+    cols = graph_columns()
+    cols["w"] = np.random.default_rng(22).uniform(
+        0.5, 2.0, len(cols["id"])).astype(np.float32)
+    ref, ds = both_datasets(cols, V)
+    q = RecursiveQuery(engine, MAX_DEPTH, 0, EngineCaps(E + 16, 4 * E + 16),
+                       workload="shortest_path", weight_col="w")
+    pq = port.RecursiveQuery(engine, MAX_DEPTH, 0, port.EngineCaps(*q.caps),
+                             workload="shortest_path", weight_col="w")
+    got = port.run_query_batch(pq, ds, ROOTS)
+    want = ref_run_query_batch(q, ref, ROOTS)
+    for i, root in enumerate(ROOTS):
+        lane = port.result_lane(got, i)
+        assert_same_result(lane, ref_result_lane(want, i))
+        np.testing.assert_array_equal(
+            lane.vertex_values.numpy(),
+            np.asarray(ref_result_lane(want, i).vertex_values))
+        one = port.run_query(pq, ds, root)
+        for field in ("positions", "count", "depth", "overflow",
+                      "row_depths", "vertex_values"):
+            assert torch.equal(getattr(lane, field), getattr(one, field)), \
+                (root, field)
     bad = port.RecursiveQuery("diropt", 4, 0, port.EngineCaps(64, 256),
-                              workload="shortest_path", weight_col="name")
+                              workload="shortest_path", weight_col="w")
     with pytest.raises(ValueError, match="value plane"):
         port.run_query_batch(bad, ds, [0, 1])
 

@@ -68,6 +68,7 @@ from repro_torch.kernels.late_gather.ref import (late_gather_columns_ref,
                                                  late_gather_ref)
 from repro_torch.kernels.spmm_segment import ops as spmm_ops
 from repro_torch.kernels.spmm_segment.ref import (SPMM_CASES, spmm_tile_case,
+                                                  spmm_segment_lanes_ref,
                                                   spmm_segment_ref)
 from repro_torch.kernels.spmm_segment.spmm_segment import SHORT_ROW
 from repro_torch.models import recsys
@@ -1026,3 +1027,195 @@ def test_msbfs_eviction_on_card(cuda):
                       "row_depths"):
             assert torch.equal(getattr(out[i], field), getattr(one, field)), \
                 (root, field)
+
+
+@pytest.mark.parametrize("d", [1, 4, 17, 128])
+@pytest.mark.parametrize("case", SPMM_CASES)
+def test_spmm_segment_lanes_match_plain(cuda, case, d):
+    """Three lanes of one tile case in one call, each with its own x and
+    source mask (the second masking every source off): the lane-axis plain
+    version run on the CPU equals the kernel on rows of at most 32 edges
+    and is within 1e-5 of the absolute sums elsewhere; each lane equals
+    the one-lane call on its masked sources bit for bit, and one lane with
+    its mask equals it too.  One launch a call for all lanes."""
+    x, src, dst, w, n_out = spmm_tile_case(case, d)
+    x, src, dst, w = (torch.from_numpy(a) for a in (x, src, dst, w))
+    n = x.shape[0]
+    rng = np.random.default_rng(SPMM_CASES.index(case) + 100 * d)
+    xs = torch.stack([x, -x, 2 * x])
+    mask = torch.from_numpy(rng.random((3, n)) < 0.6)
+    mask[1] = False
+    seg = spmm_ops.segments(dst, n_out)
+    s_src, s_seg, s_w = src[seg.order], seg.seg, w[seg.order]
+    want = spmm_segment_lanes_ref(xs, s_src, s_seg, s_w, n_out, mask)
+    scale = spmm_segment_lanes_ref(xs.abs(), s_src, s_seg, s_w.abs(), n_out,
+                                   mask)
+    short = seg.offsets.diff() <= SHORT_ROW
+    on = [t.to(cuda) for t in (xs, s_src, s_seg, s_w, seg.offsets, mask)]
+    before = spmm_ops.LAUNCHES
+    got = spmm_ops.spmm_segment_sorted(*on)
+    torch.cuda.synchronize()
+    assert spmm_ops.LAUNCHES == before + (1 if n_out * d else 0)
+    assert got.shape == (3, n_out, d) and got.dtype == torch.float32
+    xs_c, src_c, seg_c, w_c, off_c, mask_c = on
+    for lane in range(3):
+        masked = torch.where(mask_c[lane][src_c.clamp(0, n - 1).long()],
+                             src_c, n)
+        one = spmm_ops.spmm_segment_sorted(xs_c[lane], masked, seg_c, w_c,
+                                           off_c)
+        alone = spmm_ops.spmm_segment_sorted(
+            xs_c[lane:lane + 1].contiguous(), src_c, seg_c, w_c, off_c,
+            mask_c[lane:lane + 1].contiguous())[0]
+        assert torch.equal(got[lane].view(torch.int32),
+                           one.view(torch.int32)), lane
+        assert torch.equal(alone.view(torch.int32), one.view(torch.int32))
+    assert not got[1].any()                               # the empty lane
+    got = got.cpu()
+    assert torch.equal(got[:, short], want[:, short])
+    assert bool(((got - want).abs() <= 1e-5 * scale + 1e-5).all())
+
+
+def test_spmm_segment_lanes_refuse_too_many_lanes(cuda):
+    """One lane more than gridDim.y allows raises before any launch; no
+    lane is no launch."""
+    from repro_torch.kernels.spmm_segment.spmm_segment import MAX_LANES \
+        as SPMM_MAX_LANES
+    src = torch.tensor([0, 1], dtype=torch.int32, device=cuda)
+    w = torch.ones((2,), dtype=torch.float32, device=cuda)
+    offsets = torch.tensor([0, 1, 2], dtype=torch.int32, device=cuda)
+    x = torch.ones((SPMM_MAX_LANES + 1, 2, 1), device=cuda)
+    with pytest.raises(ValueError, match="lanes"):
+        spmm_ops.spmm_segment_sorted(x, src, src, w, offsets)
+    before = spmm_ops.LAUNCHES
+    out = spmm_ops.spmm_segment_sorted(x[:0], src, src, w, offsets)
+    assert out.shape == (0, 2, 1) and spmm_ops.LAUNCHES == before
+    out = spmm_ops.spmm_segment_sorted(x[:SPMM_MAX_LANES], src, src, w,
+                                       offsets)
+    torch.cuda.synchronize()
+    assert bool((out == 1).all())
+
+
+# One lane-axis call over the hub case, counted by device_launches in a
+# process of its own; prints the counts by kernel name as JSON.
+SPMM_LANE_LAUNCHES = """
+import json, sys
+import torch
+sys.path.insert(0, sys.argv[1])
+from test_torch_cuda import device_launches
+from repro_torch.kernels.spmm_segment import ops as spmm_ops
+from repro_torch.kernels.spmm_segment.ref import spmm_tile_case
+cuda = torch.device("cuda")
+x, src, dst, w, n_out = spmm_tile_case("hub_many_tiles", 1)
+x, src, dst, w = (torch.from_numpy(a).to(cuda) for a in (x, src, dst, w))
+seg = spmm_ops.segments(dst, n_out)
+s_src, s_w = src[seg.order], w[seg.order]
+xs = x[None].expand(8, -1, -1).contiguous()
+mask = torch.ones((8, x.shape[0]), dtype=torch.bool, device=cuda)
+def call():
+    return spmm_ops.spmm_segment_sorted(xs, s_src, seg.seg, s_w,
+                                        seg.offsets, mask)
+call()
+torch.cuda.synchronize()
+print(json.dumps(device_launches(call, 2)))
+"""
+
+
+def test_spmm_lane_call_keeps_its_device_launches(cuda):
+    """Eight lanes over the hub case make the device launches one lane
+    makes: the rows kernel and the hub fixup, no memset.  Counted in a
+    process of its own: in a process that has run the rest of this file,
+    torch.profiler never records this rows kernel (PERF.md §7), although
+    the lane tests above see its output."""
+    import json
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    import repro_torch
+    env = dict(os.environ,
+               PYTHONPATH=str(Path(repro_torch.__file__).parents[1]))
+    done = subprocess.run(
+        [sys.executable, "-c", SPMM_LANE_LAUNCHES,
+         str(Path(__file__).parent)],
+        env=env, capture_output=True, text=True, timeout=300, check=True)
+    launched = json.loads(done.stdout.strip().splitlines()[-1])
+    assert sum(launched.values()) == 2, launched
+    assert any("spmm_segment_rows" in k for k in launched), launched
+    assert not any("memset" in k.lower() for k in launched), launched
+
+
+WEIGHTED_SEMIRINGS = [(e, d, s) for e, d in WEIGHTED for s in SEMIRINGS]
+
+
+@pytest.mark.parametrize("engine,direction,workload", WEIGHTED_SEMIRINGS)
+def test_weighted_batch_on_card_matches_per_root(cuda, engine, direction,
+                                                 workload):
+    """Every lane of a weighted card batch equals the card's run of its
+    root: bit for bit, except that a (sum, ×) or (mul, ×) walk both ways,
+    where a vertex takes several arrivals a level, is within rtol 1e-5,
+    atol 1e-6 (the card's scatters add with atomics).  ``spmm_segment``
+    and ``frontier_expand`` are called at most once a level for all
+    lanes, and the (sum, ×) ``bitmap`` batch does call the former."""
+    spec = TreeSpec(num_vertices=3000, height=10, payload_cols=2, seed=11)
+    cols = make_edge_table(spec)
+    cols["w"] = np.random.default_rng(12).uniform(
+        0.5, 2.0, spec.num_edges).astype(np.float32)
+    ds = dataset_from_numpy(cols, 3000, cuda)
+    q = RecursiveQuery(engine, 10, 2, EngineCaps(4096, 8192),
+                       direction=direction, workload=workload,
+                       weight_col="w")
+    run_query(q, ds, 0)
+    before = spmm_ops.LAUNCHES, fe_ops.LAUNCHES
+    got = run_query_batch(q, ds, BATCH_ROOTS)
+    torch.cuda.synchronize()
+    levels = int(got.depth.max())
+    spmm, fe = spmm_ops.LAUNCHES - before[0], fe_ops.LAUNCHES - before[1]
+    assert spmm <= levels and fe <= levels
+    assert (spmm > 0) == ((engine, workload) == ("bitmap", "aggregate_sum"))
+    close = direction == "both" and workload in ("aggregate_sum",
+                                                 "aggregate_mul")
+    for i, root in enumerate(BATCH_ROOTS):
+        lane, want = result_lane(got, i), run_query(q, ds, root)
+        for field in ("positions", "count", "depth", "overflow",
+                      "row_depths"):
+            assert torch.equal(getattr(lane, field), getattr(want, field)), \
+                (root, field)
+        for k in want.values:
+            assert torch.equal(lane.values[k], want.values[k]), (root, k)
+        g, w = lane.vertex_values, want.vertex_values
+        if close:
+            assert torch.equal(g.isfinite(), w.isfinite())
+            torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-6,
+                                       equal_nan=True)
+        else:
+            assert torch.equal(g, w), root
+
+
+@pytest.mark.parametrize("engine,direction", PAPER_CELLS)
+def test_value_batch_on_card_matches_per_root(cuda, engine, direction):
+    """Every lane of a tuple or row-store card batch equals the card's run
+    of its root bit for bit; ``late_gather`` runs once a level for all
+    lanes, once for the seed blocks and once more for a rewrite's join,
+    and ``frontier_expand`` at most once a level."""
+    spec = TreeSpec(num_vertices=3000, height=10, payload_cols=2, seed=11)
+    ds = dataset_from_numpy(make_edge_table(spec), 3000, cuda)
+    q = RecursiveQuery(engine, 10, 2, EngineCaps(4096, 8192),
+                       direction=direction)
+    run_query(q, ds, 0)
+    before = fe_ops.LAUNCHES, lg_ops.LAUNCHES
+    got = run_query_batch(q, ds, BATCH_ROOTS)
+    torch.cuda.synchronize()
+    levels = int(got.depth.max())
+    assert fe_ops.LAUNCHES - before[0] <= levels
+    assert lg_ops.LAUNCHES - before[1] == \
+        levels + 1 + engine.endswith("_rewrite")
+    for i, root in enumerate(BATCH_ROOTS):
+        lane, want = result_lane(got, i), run_query(q, ds, root)
+        for field in ("positions", "count", "depth", "overflow",
+                      "row_depths"):
+            g, w = getattr(lane, field), getattr(want, field)
+            assert g.dtype == w.dtype and torch.equal(g, w), (root, field)
+        for k in want.values:
+            g, w = lane.values[k], want.values[k]
+            assert g.dtype == w.dtype and torch.equal(g, w), (root, k)

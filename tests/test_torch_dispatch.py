@@ -307,16 +307,34 @@ def test_run_query_buckets(tree, engine):
                                getattr(one, field)[:n])
 
 
-def test_weighted_buckets_wait_for_their_slice(tree):
-    """A weighted query's buckets raise the NotImplementedError of
-    run_query_batch until the weighted batches are ported."""
-    _, port_ds, cols, _ = tree
-    caps = full_caps(cols)
-    q = port.RecursiveQuery("bitmap", 4, 2, port.EngineCaps(*caps),
-                            workload="shortest_path", weight_col="payload0")
-    with pytest.raises(NotImplementedError, match="weighted"):
-        port.run_query_buckets(q, port_ds, as_buckets(
-            port, [((0,), (0,), caps)]))
+def test_weighted_buckets_match_lockstep(tree):
+    """A weighted query's buckets (shortest paths over a seeded weight
+    column ``w``, two buckets at the query's caps) give each root what one
+    lockstep batch over every root gives it, bit for bit, as the
+    reference's ``test_weighted_bucketed_dispatch_matches_lockstep`` asks
+    of its executor; and what the reference's buckets give."""
+    _, _, cols, leaves = tree
+    cols = {**cols, "w": np.random.default_rng(7).uniform(
+        0.5, 2.0, cols["id"].shape[0]).astype(np.float32)}
+    ref_ds, port_ds = both_datasets(cols, V)
+    roots = (0, 5, leaves[0], 14, 20)
+    rq, pq = (dataclasses.replace(q, workload="shortest_path",
+                                  weight_col="w", max_depth=6)
+              for q in query("precursive", full_caps(cols)))
+    specs = [((0, 2, 4), (roots[0], roots[2], roots[4]), tuple(pq.caps)),
+             ((1, 3), (roots[1], roots[3]), tuple(pq.caps))]
+    got = port.run_query_buckets(pq, port_ds, as_buckets(port, specs))
+    want = ref.run_query_buckets(rq, ref_ds, as_buckets(ref, specs))
+    lockstep = port.run_query_batch(pq, port_ds, list(roots))
+    for i, root in enumerate(roots):
+        lane = port.result_lane(lockstep, i)
+        for field in ("positions", "count", "depth", "overflow",
+                      "row_depths", "vertex_values"):
+            assert torch.equal(getattr(got[i], field),
+                               getattr(lane, field)), (root, field)
+        assert_same_result(got[i], want[i])
+        np.testing.assert_array_equal(got[i].vertex_values.numpy(),
+                                      np.asarray(want[i].vertex_values))
 
 
 def test_retry_warns_once_per_process(tree):

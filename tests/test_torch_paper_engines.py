@@ -302,14 +302,24 @@ def test_row_store_error_builds_no_row_table(graphs):
 
 
 @pytest.mark.parametrize("engine", ENGINES)
-def test_batches_name_their_slice(graphs, engine):
-    """``run_query_batch`` on the six engines raises NotImplementedError
-    naming the ROADMAP slice, after ``build_plan``'s checks."""
+def test_batches_match_single_runs(graphs, engine):
+    """``run_query_batch`` on the six engines: each lane, clipped and
+    repeated roots included, equal to ``run_query`` of its root field for
+    field and column for column; the row store stays outbound-only, in a
+    batch as in ``run_query``."""
     _, ds = graphs[3]
     q = port.RecursiveQuery(engine, 3, 0, port.EngineCaps(64, 256))
-    with pytest.raises(NotImplementedError,
-                       match="batched roots, the paper's other engines"):
-        port.run_query_batch(q, ds, [0, 1])
+    roots = [0, 1, 16, -2, 20, 0]
+    got = port.run_query_batch(q, ds, roots)
+    for i, root in enumerate(roots):
+        lane, one = port.result_lane(got, i), port.run_query(q, ds, root)
+        for field in ("positions", "count", "depth", "overflow",
+                      "row_depths"):
+            a, b = getattr(lane, field), getattr(one, field)
+            assert a.dtype == b.dtype and torch.equal(a, b), (root, field)
+        assert lane.values.keys() == one.values.keys()
+        for k in one.values:
+            assert torch.equal(lane.values[k], one.values[k]), (root, k)
     if engine in ROW_ENGINES:
         with pytest.raises(ValueError, match="outbound-only"):
             port.run_query_batch(port.RecursiveQuery(
