@@ -152,13 +152,42 @@ Phases (any failure raises and the script exits non-zero):
    ``run_query_buckets`` of ``precursive`` over the 32 roots in four
    buckets of 8, every root bit-equal to its single-root card run
    (``buckets:``, beside one 32-root batch);
-5. print one ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}``
+5. the cost-based planner (``repro_torch.planner``) on the table with
+   ``w``: ``ds.stats(d)`` for each direction, equal field for field to the
+   port's CPU dataset's (``planner stats:``, ms per pass); five queries
+   (paper listings 1-3 at depth 16, listing 2 with the 8 payloads, and
+   the shortest_path and aggregate_sum weighted listings), each planned
+   with ``DEFAULT_CONSTANTS`` on the card and on the CPU dataset (the same
+   ranked labels, prices and skipped reasons), its pick run from root 0
+   bit-equal to ``run_query`` of the chosen engine (every dressed column,
+   ``depth`` and ``value`` included), root 0 equal to the BFS oracle and,
+   weighted, to the path oracle, and its launches equal to the levels
+   that call each kernel (one ``planner:`` line each: the pick, the top
+   three with their prices, the plan ms with the statistics cached, and
+   ``plan_and_run``'s warm ms beside ``run_query``'s); ``plan_and_run`` of
+   listing 1 over the eight batch roots, every lane equal to
+   ``run_query_batch`` of the pick, and ``run_bucketed`` over the 32
+   serving roots, every root's live rows equal to its single-root run on
+   the port's CPU dataset, root 0 to the BFS oracle, one ``late_gather``
+   a bucket and each per-level kernel once on each level where a lane of
+   the bucket calls it (``planner batches:``, with the buckets
+   ``bucket_roots`` made); the three kernel factors measured on the card,
+   each the ratio of the kernel and plain microseconds it was measured
+   from (``planner factors:``), and the ``precursive+kernel`` candidate
+   they price, its run equal to ``run_query`` of ``precursive`` and to
+   the BFS oracle with ``frontier_expand`` once a level, and
+   ``frontier_expand`` at the candidate's frontier capacity at root 0's
+   widest level bit-equal to its plain version (``planner kernel
+   candidate:``); the admission guards over the serving roots, the same
+   decisions on the card and the CPU dataset (``planner guards:``);
+6. print one ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}``
    line last.
 
 It imports nothing of JAX and nothing of the JAX package ``repro``.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -215,6 +244,11 @@ from repro_torch.kernels.spmm_segment.ref import (  # noqa: E402
 from repro_torch.kernels.spmm_segment.spmm_segment import (  # noqa: E402
     SHORT_ROW, tile_plan)
 from repro_torch.models import recsys  # noqa: E402
+from repro_torch.planner import (DEFAULT_CONSTANTS, admit_roots,  # noqa: E402
+                                 calibrate, paper_listing, plan,
+                                 plan_and_run, weighted_listing)
+from repro_torch.planner.optimize import \
+    bucket_roots as plan_buckets  # noqa: E402
 
 # the posdb-bfs deployment (src/repro/configs/posdb_bfs.py), on one card:
 # frontier_cap is 2^18 instead of the config's per-shard 2^15, because the
@@ -228,7 +262,7 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 FP32_OPS_PER_S = 67e12         # H100 SXM data sheet, float32 off the tensor
 #                                cores
 TIMING_REPS = 20
-PROFILE_TRIES = 3              # sessions taken while one loses its events
+PROFILE_TRIES = 8              # sessions taken while one loses its events
 DENSE_ENGINES = ("bitmap", "hybrid", "diropt", "diropt_hybrid")
 FORCE_PULL = dict(alpha=1e9, beta=1e9)
 SEMIRINGS = ("shortest_path", "aggregate_sum", "aggregate_max",
@@ -2387,6 +2421,316 @@ def multiquery_phase(ds, cols: dict, levels: list, card: str,
 
 
 # ---------------------------------------------------------------------------
+# the planner path: SQL in, engine chosen by cost, result out
+# ---------------------------------------------------------------------------
+
+# calibrate's micro-benchmark of each kernel factor
+MEASURE_FNS = {"frontier_expand": "_measure_expand_factor",
+               "frontier_pull": "_measure_pull_factor",
+               "spmm_segment": "_measure_spmm_factor"}
+
+PLANNER_QUERIES = (
+    ("listing 1", paper_listing(1, root=0, depth=MAX_DEPTH)),
+    ("listing 2", paper_listing(2, root=0, depth=MAX_DEPTH,
+                                payload_cols=SPEC.payload_cols)),
+    ("listing 3", paper_listing(3, root=0, depth=MAX_DEPTH)),
+    ("shortest_path", weighted_listing("shortest_path", depth=MAX_DEPTH,
+                                       weight_col=WEIGHT_COL)),
+    ("aggregate_sum", weighted_listing("aggregate_sum", depth=MAX_DEPTH,
+                                       weight_col=WEIGHT_COL)),
+)
+
+
+def ranking(report) -> list:
+    """A planner report's ranked labels with their prices, and its skipped
+    candidates with their reasons."""
+    return ([(c.label, c.cost.est_us) for c in report.ranked],
+            list(report.skipped))
+
+
+def require_dressed(got, want, choice, label: str, other: str) -> None:
+    """A planner result (dressed: the requested columns, ``depth`` and,
+    weighted, ``value``) against an undressed ``run_query`` result of the
+    same query: every field equal, each requested column equal to
+    ``want``'s, ``depth`` to its row depths and ``value`` to the value
+    plane at each row's target, all bit for bit."""
+    for field in ("positions", "count", "depth", "overflow", "row_depths",
+                  "level_dirs", "vertex_values"):
+        x, y = getattr(got, field), getattr(want, field)
+        require((x is None and y is None) or (
+            x is not None and y is not None and x.dtype == y.dtype
+            and torch.equal(x, y)), f"{label}: field {field} differs from "
+            f"{other}")
+    dressed = {k: want.values[k] for k in choice.logical.want_cols}
+    if choice.logical.want_depth:
+        dressed["depth"] = want.row_depths
+    if choice.logical.workload != "reach":
+        dressed["value"] = want.vertex_values[
+            want.values["to"].long().clamp(0, SPEC.num_vertices - 1)]
+    require(got.values.keys() == dressed.keys(),
+            f"{label}: columns {sorted(got.values)}, want "
+            f"{sorted(dressed)}")
+    for k, v in dressed.items():
+        require(torch.equal(got.values[k], v),
+                f"{label}: column {k} differs from {other}")
+
+
+def require_live_rows(got, want, label: str, other: str) -> None:
+    """Two results of one root at different caps: the loop accounting and
+    the live rows, ``want``'s count of them, bit for bit, compared on
+    ``got``'s device."""
+    n = int(want.count)
+    for field in ("count", "depth", "overflow", "level_dirs"):
+        x, y = getattr(got, field), getattr(want, field)
+        require((x is None and y is None) or (
+            x is not None and y is not None
+            and torch.equal(x, y.to(x.device))),
+            f"{label}: field {field} differs from {other}")
+    for field in ("positions", "row_depths"):
+        x = getattr(got, field)
+        require(torch.equal(x[:n], getattr(want, field)[:n].to(x.device)),
+                f"{label}: live {field} differ from {other}")
+    require(got.values.keys() == want.values.keys(), f"{label}: columns")
+    for k, v in want.values.items():
+        x = got.values[k]
+        require(torch.equal(x[:n], v[:n].to(x.device)),
+                f"{label}: live column {k} differs from {other}")
+
+
+def planner_request(choice, root: int) -> Request:
+    return Request(choice.engine, choice.query.direction, root,
+                   choice.query.workload)
+
+
+def planner_phase(ds, ds_cpu, cols: dict, levels: list, values: dict,
+                  card: str, by_path: dict) -> None:
+    """The cost-based planner through its entry points on the deployment's
+    table with ``w``: the statistics of each direction on the card equal to
+    the CPU dataset's; five queries planned (the same ranking and prices
+    as on the CPU), their picks run (bit-equal to ``run_query`` of the
+    chosen engine, root 0 to the BFS and path oracles, launches equal to
+    the levels that call each kernel); listing 1 over the eight batch roots
+    and the 32 serving roots in reach buckets (each root against the CPU
+    dataset's run, root 0 against the oracle, launches exact); the three
+    measured kernel factors and the ``precursive+kernel`` candidate they
+    price (against the oracle, and its expansion kernel at the
+    candidate's capacity against the plain version); the admission guards
+    over the serving roots.  Every counted run adds to
+    ``by_path["planner"]``."""
+    t_phase = time.perf_counter()
+    nv = SPEC.num_vertices
+    by_path["planner"] = dict.fromkeys(KERNEL_OPS, 0)
+
+    def counted(fn):
+        reset_launches()
+        out = fn()
+        launches = read_launches()
+        for name, n in launches.items():
+            by_path["planner"][name] += n
+        return out, launches
+
+    stats_ms = {}
+    for d in ("outbound", "inbound", "both"):
+        t0 = time.perf_counter()
+        st = ds.stats(d)
+        card_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        st_cpu = ds_cpu.stats(d)
+        cpu_ms = (time.perf_counter() - t0) * 1e3
+        require(dataclasses.asdict(st) == dataclasses.asdict(st_cpu),
+                f"planner stats {d}: the card dataset's differ from the "
+                f"CPU dataset's")
+        stats_ms[d] = {"ms": card_ms, "cpu_dataset_ms": cpu_ms,
+                       "is_forest": st.is_forest, "levels": st.max_levels,
+                       "max_level_edges": st.max_level_edges}
+    print("planner stats: " + json.dumps({**stats_ms, "card": card}))
+
+    chosen = {}
+    for label, sql in PLANNER_QUERIES:
+        report = plan(sql, ds, constants=DEFAULT_CONSTANTS)
+        require(ranking(report) == ranking(plan(sql, ds_cpu,
+                                                constants=DEFAULT_CONSTANTS)),
+                f"planner {label}: the ranking differs from the CPU "
+                f"dataset's")
+        best = chosen[label] = report.best
+        got, launches = counted(lambda: best.run(ds, 0))
+        want = run_query(best.query, ds, 0)
+        require_dressed(got, want, best, f"planner {label}",
+                        f"run_query of {best.label}")
+        check_root0(got, levels, SPEC, f"planner {label}")
+        if best.query.workload != "reach":
+            require(torch.equal(got.vertex_values.cpu(), torch.from_numpy(
+                values[best.query.workload])),
+                f"planner {label}: vertex values differ from the path "
+                f"oracle")
+        req = planner_request(best, 0)
+        require(launches == expected_launches([req], [want], nv),
+                f"planner {label}: launches {launches}, want "
+                f"{expected_launches([req], [want], nv)}")
+        plan_ms = statistics.median(
+            timed_ms(lambda: plan(sql, ds)) for _ in range(3))
+        line = {"query": label, "chosen": best.label,
+                "top3": ranking(report)[0][:3], "plan_ms": plan_ms,
+                "plan_and_run_warm_ms": warm_latency_ms(
+                    lambda: plan_and_run(sql, ds, 0)),
+                "run_query_warm_ms": warm_latency_ms(
+                    lambda: run_query(best.query, ds, 0)),
+                "caps": list(best.query.caps), "launches": launches,
+                "card": card}
+        line["planner_overhead_ms"] = (line["plan_and_run_warm_ms"]
+                                       - line["run_query_warm_ms"])
+        print("planner: " + json.dumps(line))
+
+    # batches: listing 1 over the eight batch roots in one dispatch, and
+    # the 32 serving roots in reach buckets
+    sql1 = PLANNER_QUERIES[0][1]
+    best = chosen["listing 1"]
+    eight = batch_roots(cols, nv)
+    got, launches = counted(lambda: plan_and_run(sql1, ds, eight))
+    want = run_query_batch(best.query, ds, eight)
+    lane_levels = []
+    for i, root in enumerate(eight):
+        require_dressed(result_lane(got, i), result_lane(want, i), best,
+                        f"planner batch lane {i} root {root}",
+                        "run_query_batch of the chosen engine")
+        lane_levels.append(launch_levels(planner_request(best, root),
+                                         result_lane(want, i), nv))
+    # each per-level kernel once on each level where some lane calls it,
+    # one take of every lane's rows
+    want_launches = {**dict.fromkeys(KERNEL_OPS, 0), "late_gather": 1,
+                     **{k: len(set().union(*(lv[k] for lv in lane_levels)))
+                        for k in LEVEL_KERNELS}}
+    require(launches == want_launches, f"planner batch: launches "
+            f"{launches}, want {want_launches}")
+    serving = list(make_batches(cols, nv)[-1].roots)
+    buckets = plan_buckets(ds, serving, direction=best.query.direction,
+                           max_depth=best.query.max_depth,
+                           dedup=best.query.dedup, caps=best.query.caps)
+    got_b, launches_b = counted(lambda: best.run_bucketed(ds, serving))
+    # every root against the port's CPU run (plain versions, no kernel),
+    # root 0 also against the BFS oracle
+    cpu_b = [best.run(ds_cpu, root) for root in serving]
+    for root, r, w in zip(serving, got_b, cpu_b):
+        require_live_rows(r, w, f"planner bucket root {root}",
+                          "its single-root CPU run")
+    check_root0(got_b[serving.index(0)], levels, SPEC, "planner bucket "
+                "root 0")
+    # a bucket whose lanes outgrow its caps is dispatched again at the
+    # plan's caps; these buckets hold their lanes, so one dispatch each:
+    # one take, and each per-level kernel once on each level where some
+    # lane of the bucket calls it
+    want_b = dict.fromkeys(KERNEL_OPS, 0)
+    for b in buckets:
+        rs = [cpu_b[i] for i in b.indices]
+        require(all(int(r.count) <= b.caps.result for r in rs),
+                f"planner buckets: a lane of the bucket with caps "
+                f"{tuple(b.caps)} outgrows them")
+        lv = [launch_levels(planner_request(best, serving[i]), r, nv)
+              for i, r in zip(b.indices, rs)]
+        want_b["late_gather"] += 1
+        for k in LEVEL_KERNELS:
+            want_b[k] += len(set().union(*(x[k] for x in lv)))
+    require(launches_b == want_b, f"planner buckets: launches "
+            f"{launches_b}, want {want_b}")
+    print("planner batches: " + json.dumps({
+        "chosen": best.label, "batch_roots": eight,
+        "batch_launches": launches, "serving_roots": len(serving),
+        "buckets": [{"lanes": len(b.indices), "padded": len(b.roots),
+                     "caps": list(b.caps),
+                     "predicted_reach": b.predicted_reach}
+                    for b in buckets],
+        "bucket_launches": launches_b, "card": card}))
+
+    # the measured kernel factors, then the kernel candidate they price
+    factors = {}
+    for kernel, name in MEASURE_FNS.items():
+        # the micro-benchmark's (kernel, plain) microseconds, read as
+        # measured_kernel_factor takes them
+        measure, times = getattr(calibrate, name), []
+
+        def recorded(device, measure=measure, times=times):
+            times.append(measure(device))
+            return times[-1]
+        setattr(calibrate, name, recorded)
+        try:
+            factor = calibrate.measured_kernel_factor(kernel=kernel)
+        finally:
+            setattr(calibrate, name, measure)
+        require(len(times) == 1, f"planner factor {kernel}: measured "
+                f"{len(times)} times")
+        t_kern, t_plain = times[0]
+        require(factor == float(np.clip(t_kern / t_plain, 1e-3, 1e6))
+                and calibrate.measured_factors_state()[f"cuda/{kernel}"]
+                == factor, f"planner factor {kernel}: not the ratio of "
+                f"its times, or not cached on cuda")
+        factors[kernel] = {"factor": factor, "kernel_us": t_kern,
+                           "plain_us": t_plain}
+    print("planner factors: " + json.dumps({**factors, "card": card}))
+    report = plan(sql1, ds, include_kernel=True)
+    require(report.constants.kernel_factor
+            == factors["frontier_expand"]["factor"],
+            "planner kernel candidate: not priced with the measured factor")
+    rank, kern = next((i, c) for i, c in enumerate(report.ranked)
+                      if c.use_kernel)
+    got, launches = counted(lambda: kern.run(ds, 0))
+    want = run_query(kern.query, ds, 0)
+    require_dressed(got, want, kern, "planner precursive+kernel",
+                    "run_query of precursive")
+    check_root0(got, levels, SPEC, "planner precursive+kernel")
+    require(launches == {**dict.fromkeys(KERNEL_OPS, 0),
+                         "frontier_expand": int(want.depth),
+                         "late_gather": 1},
+            f"planner precursive+kernel: launches {launches}")
+    # the expansion kernel at the capacity the planner gives it, root 0's
+    # widest level, against its plain version
+    capacity = kern.query.caps.frontier
+    require(kern.query.direction == "outbound",
+            "planner precursive+kernel: not outbound")
+    targets, valid, level, emitted = widest_level(got, cols, capacity)
+    t, v = targets.to(DEVICE), valid.to(DEVICE)
+    got_fe = fe_ops.frontier_expand_fused(ds.csr, t, v, capacity)
+    want_fe = expand_frontier(ds.csr, t, v, capacity)
+    torch.cuda.synchronize()
+    for g, w, name in zip(got_fe, want_fe, ("positions", "total",
+                                            "overflow")):
+        require(g.dtype == w.dtype and torch.equal(g, w),
+                f"planner frontier_expand at capacity {capacity}: {name} "
+                f"differs from the plain version")
+    require(int(got_fe[1]) == emitted, f"planner frontier_expand at "
+            f"capacity {capacity}: level total")
+    print("planner kernel candidate: " + json.dumps({
+        "label": kern.label, "rank": rank, "est_us": kern.cost.est_us,
+        "best": report.best.label, "launches": launches,
+        "caps": list(kern.query.caps),
+        "frontier_expand_check": {"capacity": capacity, "level": level,
+                                  "live": int(valid.sum()),
+                                  "emitted": emitted},
+        "card": card}))
+
+    # the admission guards over the serving roots
+    guards = admit_roots(ds, best.query.direction, serving, MAX_DEPTH,
+                         DEFAULT_CONSTANTS)
+    guards_cpu = admit_roots(ds_cpu, best.query.direction, serving,
+                             MAX_DEPTH, DEFAULT_CONSTANTS)
+    require([tuple(g) for g in guards] == [tuple(g) for g in guards_cpu],
+            "planner guards: the card dataset's decisions differ from the "
+            "CPU dataset's")
+    print("planner guards: " + json.dumps({
+        d: sum(g.decision == d for g in guards)
+        for d in ("traverse", "degrade", "reject")}))
+    print(f"planner path: {time.perf_counter() - t_phase:.3f} s (host "
+          f"clock); launches {json.dumps(by_path['planner'])}")
+
+
+def timed_ms(fn) -> float:
+    """One host-clock run of ``fn`` (host work only: no device to wait
+    for)."""
+    t0 = time.perf_counter()
+    fn()
+    return (time.perf_counter() - t0) * 1e3
+
+
+# ---------------------------------------------------------------------------
 # the paper's tuple-based and row-store engines, and Exp 1-3
 # ---------------------------------------------------------------------------
 
@@ -2881,6 +3225,8 @@ def main() -> None:
     # stay out of every earlier path's numbers
     multiquery_phase(ds_paper, paper_cols, levels, card, by_path)
     del ds_paper
+    # the planner path last, on the table with the weight column
+    planner_phase(ds, ds_cpu, cols, levels, values, card, by_path)
     for name, entry in kernels.items():
         entry["launches"] = sum(n[name] for n in by_path.values())
         entry["launches_by_path"] = {p: n[name] for p, n in by_path.items()}

@@ -69,7 +69,7 @@ __all__ = ["RecursiveQuery", "Dataset", "EngineCaps", "BFSResult",
            "run_query_multi", "result_lane", "resolve_device",
            "BucketTiming", "RetryPolicy", "DispatchReport", "SKIPPED",
            "overflow_retry_count", "lane_eviction_count",
-           "dispatch_buckets", "run_query_buckets"]
+           "dispatch_buckets", "run_query_buckets", "plan_and_run"]
 
 Direction = Literal["outbound", "inbound", "both"]
 
@@ -246,6 +246,9 @@ class Dataset:
     pull_layouts: Dict[str, PullLayout] = dataclasses.field(
         default_factory=dict, compare=False, repr=False)  # per orientation
     #   ("outbound" / "inbound"), built on first use
+    stats_cache: dict = dataclasses.field(
+        default_factory=dict, compare=False, repr=False)  # direction ->
+    #   the planner's GraphStats, computed on first use
 
     @classmethod
     def prepare(cls, table: ColumnTable, num_vertices: int, device=None
@@ -313,6 +316,30 @@ class Dataset:
                     f"got shape {tuple(col.shape)}")
             self.weights[weight_col] = col.to(torch.float32)
         return self.weights[weight_col]
+
+    def edge_view_bytes(self, direction: str = "outbound") -> int:
+        """Bytes of the index arrays one direction's join view ADDS beyond
+        the always-built outbound CSR (the fused-CSR memory audit): the
+        reverse CSR for ``inbound``, plus one merged (V+1) indptr for
+        ``both``; the outbound CSR itself for ``outbound``."""
+        self.ensure_direction(direction)
+        if direction == "outbound":
+            return 4 * (self.csr.perm.numel() + self.csr.indptr.numel())
+        rev = 4 * (self.rcsr.perm.numel() + self.rcsr.indptr.numel())
+        if direction == "inbound":
+            return rev
+        return rev + 4 * self.both_indptr.numel()
+
+    def stats(self, direction: str = "outbound"):
+        """The planner's statistics of one direction view
+        (:class:`~repro_torch.planner.stats.GraphStats`), computed on the
+        host on first use and cached on the instance, inside the tracer's
+        ``stats`` span."""
+        if direction not in self.stats_cache:
+            from ..planner.stats import compute_stats
+            with _trace.trace_span("stats", direction=direction):
+                self.stats_cache[direction] = compute_stats(self, direction)
+        return self.stats_cache[direction]
 
     def context(self, direction: str = "outbound",
                 weight_col: Optional[str] = None) -> Context:
@@ -888,3 +915,14 @@ def run_query_buckets(q: RecursiveQuery, ds: Dataset, buckets
         return run_query_batch(qb, ds, b.roots)
 
     return dispatch_buckets(buckets, _dispatch, fallback_caps=q.caps)
+
+
+def plan_and_run(sql_or_ast, ds: Dataset, roots=None, **kwargs) -> BFSResult:
+    """Answer a recursive query WITHOUT an engine name: parse the minimal
+    ``WITH RECURSIVE`` dialect (or take a planner AST / LogicalQuery),
+    price every legal engine against ``ds.stats()``, and execute the
+    cheapest through the same path ``run_query`` uses.  ``roots`` is one
+    root or a sequence (one batched dispatch).  See
+    :func:`repro_torch.planner.plan_and_run` for the keyword options."""
+    from ..planner import plan_and_run as _impl
+    return _impl(sql_or_ast, ds, roots, **kwargs)

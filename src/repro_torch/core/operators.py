@@ -94,7 +94,7 @@ Public fields stay int32 (``level_dirs`` int8), as in the reference.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, NamedTuple, Optional, Tuple
+from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -109,7 +109,8 @@ from .semiring import (elem_combine, get_semiring, or_combine, propagate,
 from .table import ColumnTable, RowTable
 
 __all__ = [
-    "DIRECTIONS", "check_direction", "EngineCaps", "BFSResult", "Context",
+    "DIRECTIONS", "check_direction", "EngineCaps", "CostEnv", "OpCost",
+    "BFSResult", "Context",
     "HostCounts", "TraversalState", "Operator", "Seed", "ReadTargets",
     "VisitedDedup", "CSRIndexJoin", "ScanHashJoin", "DenseBitmapStep",
     "PullStep", "DirectionSwitch", "HybridStep", "HybridPullStep",
@@ -136,6 +137,49 @@ class EngineCaps(NamedTuple):
 
     frontier: int   # max edges emitted by a single BFS level
     result: int     # max edges in the full result
+
+
+class CostEnv(NamedTuple):
+    """One level's cardinalities + storage widths, fed to each operator's
+    :meth:`Operator.estimate` by the planner's cost model.  Cardinalities
+    come from sampled graph statistics (:mod:`repro_torch.planner.stats`);
+    widths from the dataset's actual column layout.  For finishers the
+    planner sets ``frontier_rows``/``emitted_rows`` to the *total* result
+    cardinality.
+
+    The live cardinalities drive output-row estimates; the BYTE estimates
+    of block operators are driven by ``frontier_cap``/``result_cap``
+    instead: every per-level op touches its whole fixed-capacity buffer, so
+    capacity (not the live count) is what the memory system pays.  That
+    asymmetry is why a dense O(E) level can beat a "cheaper" positional
+    level on small graphs with generous block sizes."""
+
+    frontier_rows: float       # F: live frontier entries entering the level
+    unique_rows: float         # U: frontier rows surviving vertex dedup
+    emitted_rows: float        # M: edge rows the level's join emits
+    num_vertices: int          # V
+    num_edges: int             # EJ: join-space edge count (2E for 'both')
+    frontier_cap: int          # static per-level block capacity
+    result_cap: int            # static result buffer capacity
+    row_bytes: int             # full interleaved row width (bytes/row)
+    col_bytes: Any             # Mapping[str, int]: bytes/row per column
+    kernel_factor: float = 1.0  # relative cost of a plugged kernel
+    visited_rows: float = 0.0  # vertices discovered BEFORE this level (the
+    #   pull-side work term: unvisited = V - visited_rows)
+
+
+class OpCost(NamedTuple):
+    """One operator's per-level estimate: output cardinality + bytes moved
+    through the memory system (the ranking currency of the cost model)."""
+
+    rows: float
+    bytes: float
+
+
+def _cols_bytes(env: CostEnv, cols) -> float:
+    """Bytes/row of a materialized tuple over ``cols`` (unknown synthetic
+    columns such as ``__next__`` count as one int32)."""
+    return float(sum(env.col_bytes.get(c, 4) for c in cols))
 
 
 class BFSResult(NamedTuple):
@@ -617,6 +661,15 @@ class Operator:
     def describe(self) -> str:
         return type(self).__name__
 
+    def estimate(self, env: CostEnv) -> OpCost:
+        """Per-level cost annotation: rows flowing out of this operator and
+        bytes it drags through the memory system (overridden per class).
+        Only a plugged kernel's slot of the reference scales its bytes by
+        ``env.kernel_factor``: ``CSRIndexJoin.expand_fn``,
+        ``PullStep.expand_fn`` and ``WeightedDenseStep.spmm_fn``; the
+        port's other ``expand_fn`` slots price as their plain version."""
+        return OpCost(env.frontier_rows, 0.0)
+
 
 @dataclasses.dataclass(frozen=True)
 class Seed(Operator):
@@ -719,6 +772,16 @@ class Seed(Operator):
             return "SeedBitmap[$root]"
         return f"Filter[{self.label} = $root] -> PosBlock"
 
+    def estimate(self, env):
+        if self.kind == "dense":             # set one bit in a (V,) bitmap
+            return OpCost(env.frontier_rows, float(env.num_vertices))
+        if self.scan == "rows":              # strided scan drags full rows
+            return OpCost(env.frontier_rows,
+                          float(env.num_edges) * env.row_bytes)
+        # columnar filter scan + compaction into the position block
+        return OpCost(env.frontier_rows,
+                      float(env.num_edges) * 4 + env.frontier_cap * 4.0)
+
 
 @dataclasses.dataclass(frozen=True)
 class ReadTargets(Operator):
@@ -750,6 +813,15 @@ class ReadTargets(Operator):
                 "rows": "row block"}[self.source]
         return f"ReadCol[{self.col}]({what})"
 
+    def estimate(self, env):
+        cap = float(env.frontier_cap)
+        if self.source == "pos":     # positions + ONE column gather
+            return OpCost(env.frontier_rows, cap * 8.0)
+        if self.source == "vals":    # the column is already materialized
+            return OpCost(env.frontier_rows, cap * 4.0)
+        # strided read over the padded row block
+        return OpCost(env.frontier_rows, cap * env.row_bytes)
+
 
 @dataclasses.dataclass(frozen=True)
 class VisitedDedup(Operator):
@@ -764,6 +836,12 @@ class VisitedDedup(Operator):
 
     def describe(self):
         return "VisitedDedup[bitmap]"
+
+    def estimate(self, env):
+        # scatter-argmin ticket over the padded block + the (V,) ticket /
+        # visited arrays rebuilt-or-updated every level
+        return OpCost(env.unique_rows,
+                      env.frontier_cap * 12.0 + env.num_vertices * 5.0)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -783,6 +861,14 @@ class CSRIndexJoin(Operator):
 
     def describe(self):
         return "IndexJoin[CSR(join_src)](CTE, edges)"
+
+    def estimate(self, env):
+        # two-phase expansion over the padded block: degrees + cumsum +
+        # searchsorted inversion + perm gather, all at capacity
+        b = env.frontier_cap * 16.0 + env.unique_rows * 8.0
+        if self.expand_fn is not None:
+            b *= env.kernel_factor
+        return OpCost(env.emitted_rows, b)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -808,6 +894,12 @@ class ScanHashJoin(Operator):
 
     def describe(self):
         return "HashJoin[from = cte.to](Hash(cte), SeqScan(edges))"
+
+    def estimate(self, env):
+        # frontier hash build + a FULL heap scan probing it every level
+        return OpCost(env.emitted_rows,
+                      env.num_vertices * 1.0 + env.frontier_cap * 4.0
+                      + float(env.num_edges) * (env.row_bytes + 1.0))
 
 
 def _record_deferred(state: TraversalState, new: torch.Tensor
@@ -865,6 +957,16 @@ class DenseBitmapStep(Operator):
         tag = ", deferred emit" if self.deferred else ""
         return f"BitmapStep[push: frontier bits -> edge mask{tag}]"
 
+    def estimate(self, env):
+        # O(E) masked scatter + bitmap updates, independent of frontier
+        # size; the deferred variant drops the two per-level O(E) emitted
+        # writes (paid once in the finisher instead)
+        e_ops = 6.0 if self.deferred else 10.0
+        v_ops = 4.0 if self.deferred else 3.0
+        return OpCost(env.emitted_rows,
+                      float(env.num_edges) * e_ops
+                      + float(env.num_vertices) * v_ops)
+
 
 @dataclasses.dataclass(frozen=True)
 class PullStep(Operator):
@@ -901,6 +1003,19 @@ class PullStep(Operator):
     def describe(self):
         how = "kernel" if self.expand_fn is not None else "reverse CSR"
         return f"PullStep[bottom-up: unvisited <- frontier bits ({how})]"
+
+    def estimate(self, env):
+        # the pull side reads the reverse adjacency of the UNVISITED set:
+        # work shrinks as the traversal saturates the graph, exactly the
+        # deep/wide regime where push degenerates
+        unvis = max(float(env.num_vertices) - env.visited_rows, 0.0)
+        frac = unvis / max(float(env.num_vertices), 1.0)
+        b = frac * float(env.num_edges) * 8.0 + float(env.num_vertices) * 4.0
+        if not self.deferred:
+            b += float(env.num_edges) * 4.0       # emitted upkeep anyway
+        if self.expand_fn is not None:
+            b *= env.kernel_factor
+        return OpCost(env.emitted_rows, b)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -962,6 +1077,25 @@ class DirectionSwitch(Operator):
     def describe(self):
         return (f"DirectionSwitch[a={self.alpha:g} b={self.beta:g}: "
                 f"{self.push.describe()} | {self.pull.describe()}]")
+
+    def predict(self, env: CostEnv) -> str:
+        """The cost model's per-level decision (the runtime predicate on the
+        sampled cardinalities): 'push' or 'pull'."""
+        avg = float(env.num_edges) / max(float(env.num_vertices), 1.0)
+        unvis = max(float(env.num_vertices) - env.visited_rows, 0.0)
+        m_f = env.emitted_rows                 # edges out of the frontier
+        m_u = unvis * avg
+        n_f = env.frontier_rows
+        if self.alpha * m_f > m_u and self.beta * n_f >= env.num_vertices:
+            return "pull"
+        return "push"
+
+    def estimate(self, env):
+        chosen = (self.pull if self.predict(env) == "pull"
+                  else self.push).estimate(env)
+        # the predicate itself: two degree reductions over (V,)
+        return OpCost(chosen.rows,
+                      chosen.bytes + float(env.num_vertices) * 2.0)
 
 
 def _install_edge_frontier(ctx: Context, state: TraversalState,
@@ -1034,6 +1168,15 @@ class HybridStep(Operator):
         return (f"DirectionOpt[<{self.switch_frac:g}V: IndexJoin[CSR] | "
                 f"else BitmapStep]")
 
+    def estimate(self, env):
+        # the sparse branch is the positional loop body at capacity; the
+        # dense branch is one bitmap push; emitted-mask upkeep either way
+        sparse = env.frontier_cap * 36.0 + env.num_vertices * 5.0
+        dense = float(env.num_edges) * 10.0 + float(env.num_vertices) * 3.0
+        threshold = max(1.0, env.num_vertices * self.switch_frac)
+        chosen = sparse if env.frontier_rows < threshold else dense
+        return OpCost(env.emitted_rows, chosen + env.frontier_cap * 5.0)
+
 
 @dataclasses.dataclass(frozen=True)
 class HybridPullStep(Operator):
@@ -1066,6 +1209,20 @@ class HybridPullStep(Operator):
 
     def describe(self):
         return "PullStep[bottom-up over reverse CSR -> edge block]"
+
+    def estimate(self, env):
+        # Only the bottom-up gather shrinks with the unvisited fraction;
+        # the previous-vertex set rebuild (a (V,) plane + a frontier_cap
+        # scatter), the full-edge hit mask and the compaction are paid in
+        # full every pull level
+        unvis = max(float(env.num_vertices) - env.visited_rows, 0.0)
+        frac = unvis / max(float(env.num_vertices), 1.0)
+        return OpCost(env.emitted_rows,
+                      frac * float(env.num_edges) * 8.0
+                      + env.frontier_cap * 36.0          # prev-set rebuild
+                      + float(env.num_edges) * 10.0      # hit + compact
+                      + float(env.num_vertices) * 6.0
+                      + env.frontier_cap * 5.0)
 
 
 def _level_plane(sr, nv: int, idx: torch.Tensor, vals: torch.Tensor
@@ -1166,6 +1323,14 @@ class WeightedExpand(Operator):
         return (f"WeightedExpand[{self.semiring}: combine(+)=per-vertex, "
                 "winner -> IndexJoin[CSR(join_src)]]")
 
+    def estimate(self, env):
+        # the boolean ReadCol+Dedup+IndexJoin work at capacity, plus the
+        # value plane: frontier values r/w (8B/slot) and the (V,) level +
+        # accumulator planes (two f32 r/w passes)
+        b = (env.frontier_cap * 36.0 + env.num_vertices * 5.0
+             + env.frontier_cap * 8.0 + env.num_vertices * 16.0)
+        return OpCost(env.emitted_rows, b)
+
 
 @dataclasses.dataclass(frozen=True)
 class WeightedDenseStep(Operator):
@@ -1245,6 +1410,15 @@ class WeightedDenseStep(Operator):
                else "(+)-scatter")
         return f"BitmapStep[weighted {self.semiring}: {how}]"
 
+    def estimate(self, env):
+        # the boolean dense step's O(E) traffic, plus the value plane: one
+        # f32 propagate per edge and the (V,) level + accumulator planes
+        b = (float(env.num_edges) * (10.0 + 8.0)
+             + float(env.num_vertices) * (3.0 + 16.0))
+        if self.spmm_fn is not None:
+            b *= env.kernel_factor
+        return OpCost(env.emitted_rows, b)
+
 
 @dataclasses.dataclass(frozen=True)
 class EarlyMaterialize(Operator):
@@ -1281,6 +1455,12 @@ class EarlyMaterialize(Operator):
         if self.rows:
             return "Materialize[* full rows](heap read)"
         return f"Materialize[{', '.join(self.cols)}](EVERY level)"
+
+    def estimate(self, env):
+        width = (env.row_bytes if self.rows
+                 else _cols_bytes(env, self.cols) + (4.0 if self.with_next
+                                                    else 0.0))
+        return OpCost(env.emitted_rows, env.frontier_cap * width)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -1354,6 +1534,12 @@ class AppendUnionAll(Operator):
     def describe(self):
         return "UnionAll[append working table]"
 
+    def estimate(self, env):
+        width = {"pos": 4.0, "rows": float(env.row_bytes)}.get(
+            self.rep, _cols_bytes(env, self.cols))
+        # appended block + the per-row depth tag, at block capacity
+        return OpCost(env.emitted_rows, env.frontier_cap * (width + 4.0))
+
 
 def _drain_value_frontier(ctx: Context, pipeline: "Pipeline",
                           state: TraversalState) -> torch.Tensor:
@@ -1391,6 +1577,10 @@ class LateMaterialize:
         return (f"Materialize[{', '.join(self.cols)}]"
                 "  <- ONE late gather, after the fixed point")
 
+    def estimate(self, env):
+        return OpCost(env.frontier_rows,
+                      env.result_cap * (_cols_bytes(env, self.cols) + 4.0))
+
 
 def _no_positions(state: TraversalState) -> torch.Tensor:
     """The (R,) positions of a tuple or row pipeline: all -1."""
@@ -1420,6 +1610,9 @@ class EmitTuples:
     def describe(self):
         return f"Emit[{', '.join(self.cols)}](pre-materialized; positions=-1)"
 
+    def estimate(self, env):
+        return OpCost(env.frontier_rows, 0.0)   # already paid per level
+
 
 @dataclasses.dataclass(frozen=True)
 class ProjectRows:
@@ -1435,6 +1628,9 @@ class ProjectRows:
 
     def describe(self):
         return f"Project[{', '.join(self.cols)}](full rows)"
+
+    def estimate(self, env):
+        return OpCost(env.frontier_rows, env.result_cap * env.row_bytes)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -1486,6 +1682,16 @@ class TopLevelJoin:
         return (f"HashJoin[id = cte.id](Hash(id -> pos), "
                 f"{self.inner.describe()})")
 
+    def estimate(self, env):
+        inner = self.inner.estimate(env)
+        cap_r = env.result_cap
+        if self.use_rows:     # strided id scan + full-row re-gather
+            b = float(env.num_edges) * env.row_bytes + cap_r * env.row_bytes
+        else:                 # probe-array build + ONE late gather
+            b = (float(env.num_edges) * 8.0
+                 + cap_r * (_cols_bytes(env, self.cols) + 4.0))
+        return OpCost(env.frontier_rows, inner.bytes + b)
+
 
 @dataclasses.dataclass(frozen=True)
 class CompactEmitted:
@@ -1502,6 +1708,12 @@ class CompactEmitted:
     def describe(self):
         return (f"Materialize[{', '.join(self.cols)}](Compact(emitted mask))"
                 "  <- ONE late gather")
+
+    def estimate(self, env):
+        return OpCost(env.frontier_rows,
+                      float(env.num_edges) * 2.0
+                      + env.result_cap * (_cols_bytes(env, self.cols)
+                                          + 4.0))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -1524,6 +1736,13 @@ class DeferredEmit:
     def describe(self):
         return (f"Materialize[{', '.join(self.cols)}]"
                 "(Compact(vertex depths -> emitted))  <- ONE deferred pass")
+
+    def estimate(self, env):
+        # one (EJ,) depth gather + mask + compact, then the late gather
+        return OpCost(env.frontier_rows,
+                      float(env.num_edges) * 3.0
+                      + env.result_cap * (_cols_bytes(env, self.cols)
+                                          + 4.0))
 
 
 def _deferred_mask(ctx: Context, vertex_depth: torch.Tensor,
@@ -1905,6 +2124,11 @@ class MultiQuerySeed(Operator):
     def describe(self):
         return f"MultiQuerySeed[{self.lanes} lane bits -> (V,) word]"
 
+    def estimate(self, env):
+        # two (V,) word planes + the snapshot row + the lane-bit scatter
+        return OpCost(float(self.lanes),
+                      float(env.num_vertices) * 12.0 + self.lanes * 8.0)
+
 
 @dataclasses.dataclass(frozen=True)
 class MultiQueryWordSweep(Operator):
@@ -1918,6 +2142,13 @@ class MultiQueryWordSweep(Operator):
     def describe(self):
         return (f"MultiQueryWordSweep[{self.lanes} lanes/word: "
                 "segment-OR pull, per-lane freeze]")
+
+    def estimate(self, env):
+        # (E,) word gather + segmented-scan passes (log-depth, priced as a
+        # small linear factor) + frontier/visited/snapshot word planes
+        return OpCost(env.emitted_rows,
+                      float(env.num_edges) * 16.0
+                      + float(env.num_vertices) * 16.0)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -1939,6 +2170,14 @@ class MultiQueryEmit:
     def describe(self):
         return (f"Materialize[{', '.join(self.cols)}]"
                 f"(Compact(lane depths -> emitted)) x{self.lanes} lanes")
+
+    def estimate(self, env):
+        # per lane: the level->depth reconstruction, one (EJ,) depth
+        # gather + mask + compact, and the late materialize
+        per_lane = (float(env.num_edges) * 3.0
+                    + float(env.num_vertices) * 2.0
+                    + env.result_cap * (_cols_bytes(env, self.cols) + 4.0))
+        return OpCost(env.frontier_rows, self.lanes * per_lane)
 
 
 def _multiquery_finish(ctx: Context, pipeline: Pipeline,

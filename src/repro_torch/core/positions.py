@@ -20,7 +20,8 @@ import torch
 
 from .csr import lane_cumsum
 
-__all__ = ["PosBlock", "empty_block", "compact_mask", "append_block"]
+__all__ = ["PosBlock", "empty_block", "compact_mask", "append_block",
+           "take_late", "sort_positions_by_key"]
 
 
 class PosBlock(NamedTuple):
@@ -85,3 +86,31 @@ def append_block(buf: torch.Tensor, buf_count: torch.Tensor, block: PosBlock
                  torch.where(live, block.positions, 0))
     new_count = (buf_count + block.count).clamp(max=cap_r)
     return ext[..., :cap_r], new_count, (buf_count + block.count) > cap_r
+
+
+# ---------------------------------------------------------------------------
+# Late materialization + positional processing primitives
+# ---------------------------------------------------------------------------
+
+def take_late(table, block: PosBlock, names=None):
+    """The Materialize operator: one gather at the very end of a positional
+    plan.  ``table`` is a ColumnTable; returns a dict of (cap, ...) tensors
+    with dead slots zeroed."""
+    return table.take(block.positions, names)
+
+
+def sort_positions_by_key(keys: torch.Tensor, num_buckets: int
+                          ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Stable-sort positions by an integer bucket key: (order, counts),
+    ``order`` the original positions grouped by bucket (int32) and
+    ``counts`` the (num_buckets,) int32 bucket sizes.  A key in
+    [-num_buckets, 0) counts from the end once; any other key outside
+    [0, num_buckets) is counted nowhere (the reference's dropping scatter),
+    through the spare slot."""
+    order = torch.argsort(keys, stable=True).to(torch.int32)
+    k = torch.where(keys < 0, keys + num_buckets, keys)
+    slot = torch.where((k >= 0) & (k < num_buckets), k, num_buckets)
+    counts = torch.zeros(num_buckets + 1, dtype=torch.int32,
+                         device=keys.device)
+    counts.index_add_(0, slot.long(), torch.ones_like(slot, dtype=torch.int32))
+    return order, counts[:num_buckets]

@@ -49,7 +49,8 @@ from .table import ColumnTable, RowTable
 
 __all__ = ["precursive_plan", "weighted_precursive_plan", "trecursive_plan",
            "rowstore_plan", "trecursive_rewrite_plan",
-           "rowstore_rewrite_plan", "trecursive_bfs", "rowstore_bfs",
+           "rowstore_rewrite_plan", "precursive_bfs", "trecursive_bfs",
+           "rowstore_bfs",
            "trecursive_rewrite_bfs", "rowstore_rewrite_bfs"]
 
 # per-direction (seed filter column label, tuple-rep next-vertex column)
@@ -194,6 +195,16 @@ def _row_ctx(rt: RowTable, csr: CSRIndex) -> Context:
     return Context(table=None, rows=rt, csr=csr,
                    join_src=rt.column("from").to(torch.int32),
                    join_dst=rt.column("to").to(torch.int32))
+
+
+def precursive_bfs(table: ColumnTable, csr: CSRIndex, root,
+                   *, caps: EngineCaps, max_depth: int,
+                   out_cols: tuple[str, ...], dedup: bool = True,
+                   expand_fn: Callable | None = None) -> BFSResult:
+    """Positional BFS with late materialization (Fig. 4)."""
+    plan = precursive_plan(caps, max_depth, out_cols, dedup,
+                           expand_fn=expand_fn)
+    return execute(plan, _columnar_ctx(table, csr), root, csr.num_vertices)
 
 
 def trecursive_bfs(table: ColumnTable, csr: CSRIndex, root,

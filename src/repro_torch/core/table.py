@@ -64,6 +64,16 @@ class ColumnTable:
     def column(self, name: str) -> torch.Tensor:
         return self.columns[name]
 
+    def select(self, names: Sequence[str]) -> "ColumnTable":
+        return ColumnTable({n: self.columns[n] for n in names})
+
+    def width_bytes(self, names: Sequence[str] | None = None) -> int:
+        """Bytes of one row over ``names`` (all columns by default), each
+        column at its own dtype's width (the planner's column widths)."""
+        names = self.names if names is None else tuple(names)
+        return sum(math.prod(self.columns[n].shape[1:])
+                   * self.columns[n].element_size() for n in names)
+
     def take(self, positions: torch.Tensor, names: Sequence[str] | None = None
              ) -> Dict[str, torch.Tensor]:
         """Gather ``positions`` (int32) from the requested columns.
@@ -99,13 +109,20 @@ class RowTable:
     data: torch.Tensor                   # (rows, width) float32
     layout: tuple[str, ...]              # column name per slot
 
-    @classmethod
-    def from_column_table(cls, table: ColumnTable) -> "RowTable":
+    @staticmethod
+    def layout_of(table: ColumnTable) -> tuple[str, ...]:
+        """The slot names a row table of ``table`` has (its width is their
+        number), without building it."""
         layout = []
         for name in table.names:
             col = table.columns[name]
             layout += ([name] if col.dim() == 1 else
                        [f"{name}.{j}" for j in range(col.shape[1])])
+        return tuple(layout)
+
+    @classmethod
+    def from_column_table(cls, table: ColumnTable) -> "RowTable":
+        layout = cls.layout_of(table)
         data = torch.empty((table.num_rows, len(layout)),
                            dtype=torch.float32, device=table.device)
         slot = 0
@@ -113,7 +130,7 @@ class RowTable:
             col = table.columns[name].reshape(table.num_rows, -1)
             data[:, slot:slot + col.shape[1]] = col
             slot += col.shape[1]
-        return cls(data, tuple(layout))
+        return cls(data, layout)
 
     @property
     def num_rows(self) -> int:

@@ -1219,3 +1219,99 @@ def test_value_batch_on_card_matches_per_root(cuda, engine, direction):
         for k in want.values:
             g, w = lane.values[k], want.values[k]
             assert g.dtype == w.dtype and torch.equal(g, w), (root, k)
+
+
+# ---------------------------------------------------------------------------
+# the planner on the card
+# ---------------------------------------------------------------------------
+
+def planner_datasets(device):
+    """The golden tree with a seeded float32 weight column ``w``, on the
+    card and on the CPU."""
+    spec = TreeSpec(num_vertices=3000, height=10, payload_cols=4, seed=11)
+    cols = make_edge_table(spec)
+    cols["w"] = np.random.default_rng(11).uniform(
+        0.5, 2.0, spec.num_edges).astype(np.float32)
+    return tuple(dataset_from_numpy(cols, spec.num_vertices, d)
+                 for d in (device, "cpu"))
+
+
+def assert_result_on_card_equals_cpu(got, want):
+    for field in ("positions", "count", "depth", "overflow", "row_depths",
+                  "level_dirs", "vertex_values"):
+        g, w = getattr(got, field), getattr(want, field)
+        if w is None:
+            assert g is None, field
+            continue
+        assert g.is_cuda and g.dtype == w.dtype, field
+        assert torch.equal(g.cpu(), w), field
+    assert sorted(got.values) == sorted(want.values)
+    for k, w in want.values.items():
+        assert torch.equal(got.values[k].cpu(), w), k
+
+
+@pytest.mark.parametrize("n", [1, 2, 3])
+def test_plan_and_run_on_card_matches_cpu(cuda, n):
+    """``plan_and_run`` of paper listings 1-3 on the card, one root and
+    four, equals the port's CPU run of the same plan bit for bit, and the
+    pick ran through its kernels."""
+    from repro_torch.planner import paper_listing, plan_and_run
+    ds, ds_cpu = planner_datasets(cuda)
+    sql = paper_listing(n, root=0, depth=8, payload_cols=4)
+    for roots in (0, [0, 1, 17, 2999]):
+        before = fp_ops.LAUNCHES, lg_ops.LAUNCHES
+        got = plan_and_run(sql, ds, roots)
+        torch.cuda.synchronize()
+        want = plan_and_run(sql, ds_cpu, roots)
+        assert_result_on_card_equals_cpu(got, want)
+        # diropt: one take of every lane's rows, a pull call at each level
+        # where some lane pulls
+        pulls = (want.level_dirs == 1).reshape(-1, want.level_dirs.shape[-1])
+        assert (fp_ops.LAUNCHES - before[0], lg_ops.LAUNCHES - before[1]) \
+            == (int(pulls.any(0).sum()), 1)
+
+
+def test_plan_on_card_ranks_as_on_cpu(cuda):
+    """The cost is device-independent: the same labels, prices and skipped
+    reasons, for every listing and weighted listing in each direction."""
+    from repro_torch.planner import paper_listing, plan
+    from repro_torch.planner.ast import weighted_listing
+    ds, ds_cpu = planner_datasets(cuda)
+    queries = [paper_listing(n, depth=8, payload_cols=4) for n in (1, 2, 3)]
+    queries += [weighted_listing(w, depth=8)
+                for w in ("shortest_path", "aggregate_sum")]
+    for sql in queries:
+        for lanes in (1, 8):
+            got = plan(sql, ds, lanes=lanes)
+            want = plan(sql, ds_cpu, lanes=lanes)
+            assert ([(c.label, c.cost) for c in got.ranked]
+                    == [(c.label, c.cost) for c in want.ranked])
+            assert got.skipped == want.skipped
+
+
+def test_measured_kernel_factor_on_card_keyed_apart(cuda, monkeypatch):
+    """On the card each factor is measured and cached under ("cuda",
+    kernel), apart from the CPU's cell; a kernel-candidate plan on a card
+    dataset prices with the card's factor and runs bit-equal to
+    ``precursive``."""
+    from repro_torch.planner import calibrate, paper_listing, plan
+    monkeypatch.setattr(calibrate, "_MEASURED_KERNEL_FACTORS", {})
+    calibrate.set_measured_kernel_factor(123.0, backend="cpu")
+    for kernel in calibrate.KERNEL_NAMES:
+        got = calibrate.measured_kernel_factor(kernel=kernel)
+        assert 1e-3 <= got <= 1e6
+        assert calibrate._MEASURED_KERNEL_FACTORS[("cuda", kernel)] == got
+    assert calibrate._MEASURED_KERNEL_FACTORS[("cpu", "frontier_expand")] \
+        == 123.0
+    ds, ds_cpu = planner_datasets(cuda)
+    report = plan(paper_listing(1, depth=8), ds, include_kernel=True)
+    assert report.constants.kernel_factor == \
+        calibrate._MEASURED_KERNEL_FACTORS[("cuda", "frontier_expand")]
+    kern = next(c for c in report.ranked if c.use_kernel)
+    before = fe_ops.LAUNCHES
+    got = kern.run(ds, 0)
+    torch.cuda.synchronize()
+    assert fe_ops.LAUNCHES - before == int(got.depth)
+    want = run_query(kern.query, ds, 0)
+    for field in ("positions", "count", "depth", "overflow", "row_depths"):
+        assert torch.equal(getattr(got, field), getattr(want, field)), field
