@@ -180,7 +180,39 @@ Phases (any failure raises and the script exits non-zero):
    widest level bit-equal to its plain version (``planner kernel
    candidate:``); the admission guards over the serving roots, the same
    decisions on the card and the CPU dataset (``planner guards:``);
-6. print one ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}``
+6. the traversal serving layer (``repro_torch.planner.serving``) on the
+   same table: a ``ServingSession`` on the card and one on the CPU
+   dataset submit listing 1 over the 32 serving roots (cold, then 3 warm)
+   and aggregate_sum over the eight batch roots, every lane bit-equal to
+   the CPU session's, root 0 to the BFS and path oracles, the buckets'
+   engines and the plan document equal, and each kernel's launches
+   exactly one take a bucket and each per-level kernel once on each level
+   where a lane of the bucket calls it (``serving:``, with warm ms per
+   root beside ``plan_and_run`` and ``run_query_batch`` of the same
+   roots, and a ``profile:`` line of the warm submit); ``enqueue`` x 32 +
+   ``flush`` as one coalesced dispatch; the plan store saved and a new
+   card session rehydrated from it, zero parse / statistics / costing
+   passes and the same lanes (``serving store:``); ``explain``,
+   ``explain_json`` and ``explain_analyze`` of listing 1 equal to the CPU
+   dataset's but the wall time, and the session's EXPLAIN ANALYZE over
+   the 32 roots (``serving explain:``); a session with the default
+   ``calibrate_every`` served warm until its calibrator refits: the refit
+   constants, refits accepted and rejected, each listing's pick under
+   them (a changed pick run on the card equal to the CPU run), each plan
+   signature's mean measured bucket interval beside the prior's
+   prediction, warm p50 / p99 and roots per second (``serving
+   calibration:``); one warm request traced to JSONL and held to the
+   port's ``check_trace``, its request, transfer and level-event span
+   ms, and the warm ms with the tracer on and off, median of 5 each
+   (``serving trace:``);
+   the admission decisions equal to the CPU session's and a 20 ms
+   deadline under an injected 50 ms straggler, the skipped roots named
+   and empty and the served lanes bit-equal (``serving guards:``); and
+   ``python -m repro_torch.launch.serve --traversal`` at 2^20 vertices,
+   height and depth 16, batches of 8, 16 requests, with a plan store and
+   a trace, run twice, the second ``(rehydrated)`` with zero planning
+   passes (``serving entry:``);
+7. print one ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}``
    line last.
 
 It imports nothing of JAX and nothing of the JAX package ``repro``.
@@ -244,9 +276,11 @@ from repro_torch.kernels.spmm_segment.ref import (  # noqa: E402
 from repro_torch.kernels.spmm_segment.spmm_segment import (  # noqa: E402
     SHORT_ROW, tile_plan)
 from repro_torch.models import recsys  # noqa: E402
-from repro_torch.planner import (DEFAULT_CONSTANTS, admit_roots,  # noqa: E402
-                                 calibrate, paper_listing, plan,
-                                 plan_and_run, weighted_listing)
+from repro_torch.planner import (DEFAULT_CONSTANTS,  # noqa: E402
+                                 ServingSession, admit_roots, calibrate,
+                                 explain, explain_analyze, explain_json,
+                                 paper_listing, plan, plan_and_run,
+                                 weighted_listing)
 from repro_torch.planner.optimize import \
     bucket_roots as plan_buckets  # noqa: E402
 
@@ -2497,6 +2531,18 @@ def require_live_rows(got, want, label: str, other: str) -> None:
                 f"{label}: live column {k} differs from {other}")
 
 
+def counted_into(path: dict, fn):
+    """``fn()`` with the launch counters zeroed just before and read just
+    after, the reading added to ``path``'s counts; returns (result,
+    reading)."""
+    reset_launches()
+    out = fn()
+    launches = read_launches()
+    for name, n in launches.items():
+        path[name] += n
+    return out, launches
+
+
 def planner_request(choice, root: int) -> Request:
     return Request(choice.engine, choice.query.direction, root,
                    choice.query.workload)
@@ -2522,12 +2568,7 @@ def planner_phase(ds, ds_cpu, cols: dict, levels: list, values: dict,
     by_path["planner"] = dict.fromkeys(KERNEL_OPS, 0)
 
     def counted(fn):
-        reset_launches()
-        out = fn()
-        launches = read_launches()
-        for name, n in launches.items():
-            by_path["planner"][name] += n
-        return out, launches
+        return counted_into(by_path["planner"], fn)
 
     stats_ms = {}
     for d in ("outbound", "inbound", "both"):
@@ -2619,17 +2660,12 @@ def planner_phase(ds, ds_cpu, cols: dict, levels: list, values: dict,
     # plan's caps; these buckets hold their lanes, so one dispatch each:
     # one take, and each per-level kernel once on each level where some
     # lane of the bucket calls it
-    want_b = dict.fromkeys(KERNEL_OPS, 0)
     for b in buckets:
-        rs = [cpu_b[i] for i in b.indices]
-        require(all(int(r.count) <= b.caps.result for r in rs),
+        require(all(int(cpu_b[i].count) <= b.caps.result
+                    for i in b.indices),
                 f"planner buckets: a lane of the bucket with caps "
                 f"{tuple(b.caps)} outgrows them")
-        lv = [launch_levels(planner_request(best, serving[i]), r, nv)
-              for i, r in zip(b.indices, rs)]
-        want_b["late_gather"] += 1
-        for k in LEVEL_KERNELS:
-            want_b[k] += len(set().union(*(x[k] for x in lv)))
+    want_b = bucket_launches(((b, best) for b in buckets), cpu_b, serving)
     require(launches_b == want_b, f"planner buckets: launches "
             f"{launches_b}, want {want_b}")
     print("planner batches: " + json.dumps({
@@ -2720,6 +2756,426 @@ def planner_phase(ds, ds_cpu, cols: dict, levels: list, values: dict,
         for d in ("traverse", "degrade", "reject")}))
     print(f"planner path: {time.perf_counter() - t_phase:.3f} s (host "
           f"clock); launches {json.dumps(by_path['planner'])}")
+
+
+# ---------------------------------------------------------------------------
+# the serving layer (repro_torch.planner.serving) on the card
+# ---------------------------------------------------------------------------
+
+SERVING_WARM = 3               # checked warm submits of the 32 roots
+TRACER_REPS = 5                # warm submits each with the tracer on and off
+REFIT_MAX_ROUNDS = 30          # rounds of the request mix toward a refit
+STRAGGLER_SLEEP_S = 0.05       # straggler_sleep against DEADLINE_US
+DEADLINE_US = 20_000.0
+ENTRY_ARGS = ("--traversal", "--vertices", str(1 << 20), "--height", "16",
+              "--depth", "16", "--batch", "8", "--requests", "16")
+
+
+def require_lanes(got: list, want: list, label: str,
+                  other: str = "the CPU session's") -> None:
+    """Served lanes (host tensors) against another session's, field for
+    field and bit for bit."""
+    require(len(got) == len(want), f"{label}: {len(got)} lanes, want "
+            f"{len(want)}")
+    for i, (g, w) in enumerate(zip(got, want)):
+        require_equal(g, w, f"{label} lane {i}", other)
+
+
+def bucket_launches(buckets, lanes: list, roots: list) -> dict:
+    """The launches one dispatch of ``buckets``, (bucket, choice) pairs,
+    makes, read off the lanes of a CPU run of ``roots``: for each bucket
+    one take of every lane's rows
+    (on the tuple and row-store engines one a level of the deepest lane,
+    one for the seed blocks and one more for a rewrite's join), and each
+    per-level kernel once on each level where some lane of the bucket
+    calls it (:func:`launch_levels`); MS-BFS calls no per-level kernel."""
+    want = dict.fromkeys(KERNEL_OPS, 0)
+    nv = SPEC.num_vertices
+    for b, c in buckets:
+        rs = [lanes[i] for i in b.indices]
+        if c.engine in VALUE_ENGINE_NAMES:
+            want["late_gather"] += (max(int(r.depth) for r in rs) + 1
+                                    + c.engine.endswith("_rewrite"))
+        else:
+            want["late_gather"] += 1
+        if c.engine == "multiquery":
+            continue
+        lv = [launch_levels(Request(c.engine, c.query.direction, roots[i],
+                                    c.query.workload), lanes[i], nv)
+              for i in b.indices]
+        for k in LEVEL_KERNELS:
+            want[k] += len(set().union(*(x[k] for x in lv)))
+    return want
+
+
+def entry_line(entry) -> list:
+    return [{"engine": c.label, "lanes": len(b.indices),
+             "padded": len(b.roots), "caps": list(b.caps)}
+            for b, c in zip(entry.buckets, entry.bucket_choices)]
+
+
+def quantile(ms: list, q: float) -> float:
+    """The ``q`` quantile of a sample by linear interpolation."""
+    return float(np.quantile(np.asarray(ms), q))
+
+
+def serving_phase(ds, ds_cpu, cols: dict, levels: list, values: dict,
+                  id_to_pos, card: str, by_path: dict) -> None:
+    """:func:`serving_checks` with a temporary directory for its plan
+    stores and traces, removed after."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory(prefix="serving_") as tmp:
+        serving_checks(ds, ds_cpu, cols, levels, values, id_to_pos, card,
+                       by_path, tmp)
+
+
+def serving_checks(ds, ds_cpu, cols: dict, levels: list, values: dict,
+                   id_to_pos, card: str, by_path: dict, tmp: str) -> None:
+    """The traversal serving layer through its entry points on the
+    deployment's table with ``w``: coalesced submits of listing 1 over the
+    32 serving roots (cold, then warm) and of aggregate_sum over the eight
+    batch roots, every lane bit-equal to a CPU session's, root 0 to the
+    BFS and path oracles, the buckets' engines and the plan equal to the
+    CPU session's, and each kernel's launches exactly what the buckets'
+    engines and levels imply; ``enqueue`` x 32 + ``flush`` (one coalesced
+    dispatch); a plan store saved and rehydrated (zero planning passes,
+    the same lanes); EXPLAIN and EXPLAIN ANALYZE against the CPU
+    dataset's; the first calibrator refit on the card; a traced warm
+    request checked by the port's ``check_trace``, and the tracer's cost;
+    the admission ladder and a deadline that skips buckets under an
+    injected straggler; and ``serve_traversals`` run twice, the second
+    rehydrated.  Every counted run adds to ``by_path["serving"]``."""
+    import contextlib
+    import io
+
+    from repro_torch.launch import serve as serve_mod
+    from repro_torch.obs import Tracer, faultinject, read_jsonl
+    from repro_torch.obs.check_trace import check_trace
+
+    t_phase = time.perf_counter()
+    nv = SPEC.num_vertices
+    by_path["serving"] = dict.fromkeys(KERNEL_OPS, 0)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+
+    def counted(fn):
+        return counted_into(by_path["serving"], fn)
+
+    def timed_counted(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, launches = counted(fn)
+        return out, launches, (time.perf_counter() - t0) * 1e3
+
+    sql1 = PLANNER_QUERIES[0][1]
+    sql_sum = PLANNER_QUERIES[4][1]
+    serving = list(make_batches(cols, nv)[-1].roots)
+    eight = batch_roots(cols, nv)
+
+    # coalesced submits: one session on the card, one on the CPU dataset
+    sess = ServingSession(ds, calibrate_every=0)
+    sess_cpu = ServingSession(ds_cpu, calibrate_every=0)
+    got, launches, cold_ms = timed_counted(lambda: sess.submit(sql1,
+                                                               serving))
+    want = sess_cpu.submit(sql1, serving)
+    entry = sess.plan_for(sql1, serving)
+    entry_cpu = sess_cpu.plan_for(sql1, serving)
+    require([c.label for c in entry.bucket_choices]
+            == [c.label for c in entry_cpu.bucket_choices]
+            and entry.bucket_signature == entry_cpu.bucket_signature,
+            "serving: the buckets or their engines differ from the CPU "
+            "session's")
+    require(sess.plan_json(sql1, serving) == sess_cpu.plan_json(sql1,
+                                                                serving),
+            "serving: plan_json differs from the CPU session's")
+    rep, rep_cpu = sess.last_report, sess_cpu.last_report
+    require([g.to_json() for g in rep.admission]
+            == [g.to_json() for g in rep_cpu.admission],
+            "serving: the admission decisions differ from the CPU "
+            "session's")
+    require((rep.retries, rep.evictions, rep.truncated)
+            == (rep_cpu.retries, rep_cpu.evictions, False) == (0, 0, False),
+            f"serving: the request was retried, evicted or truncated "
+            f"({rep}); the launch counts below assume one dispatch a "
+            f"bucket")
+    want_launches = bucket_launches(
+        zip(entry.buckets, entry.bucket_choices), want, serving)
+    require_lanes(got, want, "serving listing 1 cold")
+    i0 = serving.index(0)
+    c0 = next(c for b, c in zip(entry.buckets, entry.bucket_choices)
+              if i0 in b.indices)
+    check_root0(got[i0], levels, SPEC, "serving listing 1 root 0",
+                real_positions(c0.engine, got[i0], id_to_pos))
+    require(launches == want_launches, f"serving cold: launches "
+            f"{launches}, want {want_launches}")
+    warm_ms = []
+    for k in range(SERVING_WARM):
+        got_w, launches_w, ms = timed_counted(lambda: sess.submit(sql1,
+                                                                  serving))
+        require_lanes(got_w, want, f"serving listing 1 warm {k}")
+        require(launches_w == want_launches, f"serving warm {k}: launches "
+                f"{launches_w}, want {want_launches}")
+        warm_ms.append(ms)
+    got_s, launches_s = counted(lambda: sess.submit(sql_sum, eight))
+    want_s = sess_cpu.submit(sql_sum, eight)
+    entry_s = sess.plan_for(sql_sum, eight)
+    require([c.label for c in entry_s.bucket_choices]
+            == [c.label for c in sess_cpu.plan_for(sql_sum, eight)
+                .bucket_choices]
+            and sess.plan_json(sql_sum, eight)
+            == sess_cpu.plan_json(sql_sum, eight),
+            "serving aggregate_sum: buckets or plan differ from the CPU "
+            "session's")
+    require_lanes(got_s, want_s, "serving aggregate_sum")
+    check_root0(got_s[0], levels, SPEC, "serving aggregate_sum root 0")
+    require(torch.equal(got_s[0].vertex_values,
+                        torch.from_numpy(values["aggregate_sum"])),
+            "serving aggregate_sum root 0: vertex values differ from the "
+            "path oracle")
+    want_ls = bucket_launches(
+        zip(entry_s.buckets, entry_s.bucket_choices), want_s, eight)
+    require(launches_s == want_ls, f"serving aggregate_sum: launches "
+            f"{launches_s}, want {want_ls}")
+    best = plan(sql1, ds).best
+    pr_ms = warm_latency_ms(lambda: plan_and_run(sql1, ds, serving))
+    batch_ms = warm_latency_ms(lambda: run_query_batch(best.query, ds,
+                                                       serving))
+    st = sess.stats
+
+    # enqueue x 32 + flush: one coalesced dispatch
+    tickets = [sess.enqueue(sql1, r) for r in serving]
+    require(sess.stats["pending_requests"] == len(serving),
+            "serving enqueue: pending count")
+    n, launches_f = counted(sess.flush)
+    require(n == 1, f"serving flush: {n} dispatches, want 1")
+    require_lanes([t.result() for t in tickets], want, "serving flush")
+    require(launches_f == want_launches, f"serving flush: launches "
+            f"{launches_f}, want {want_launches}")
+    stf = sess.stats
+    require((stf["coalesced_dispatches"], stf["coalesced_roots"],
+             stf["pending_requests"]) == (1, len(serving), 0),
+            f"serving flush: coalesced counters {stf}")
+    print("serving: " + json.dumps({
+        "query": "listing 1", "roots": len(serving),
+        "buckets": entry_line(entry), "cold_ms": cold_ms,
+        "warm_ms": warm_ms, "warm_ms_per_root": statistics.median(warm_ms)
+        / len(serving),
+        "roots_per_s": len(serving) / statistics.median(warm_ms) * 1e3,
+        "plan_and_run_warm_ms": pr_ms, "run_query_batch_warm_ms": batch_ms,
+        "batch_engine": best.label, "launches": want_launches,
+        "aggregate_sum": {"roots": len(eight),
+                          "buckets": entry_line(entry_s),
+                          "launches": launches_s},
+        "plan_hit_rate": st["plan_hit_rate"],
+        "admission": {d: st[f"admission_{d}"]
+                      for d in ("traverse", "degrade", "reject")},
+        "flush": {"dispatches": n, "coalesced_roots":
+                  stf["coalesced_roots"]}, "card": card}))
+    print("profile: " + json.dumps({**profile_call(
+        f"serving listing 1 x{len(serving)} warm",
+        lambda: sess.submit(sql1, serving), statistics.median(warm_ms)),
+        "card": card}))
+
+    # the plan store: saved, then a new card session rehydrated from it
+    path = f"{tmp}/plans.json"
+    sess.save_plan_store(path)
+    warm_sess = ServingSession(ds, calibrate_every=0, plan_store=path)
+    (got_r, got_rs), launches_r = counted(lambda: (
+        warm_sess.submit(sql1, serving), warm_sess.submit(sql_sum, eight)))
+    require(warm_sess.counters == {"parse_calls": 0, "stats_calls": 0,
+                                   "cost_calls": 0},
+            f"serving store: the rehydrated session paid planning "
+            f"{warm_sess.counters}")
+    require_lanes(got_r, got, "serving store listing 1", "the cold "
+                  "session's")
+    require_lanes(got_rs, got_s, "serving store aggregate_sum",
+                  "the cold session's")
+    require(launches_r == {k: want_launches[k] + want_ls[k]
+                           for k in KERNEL_OPS},
+            f"serving store: launches {launches_r}")
+    print("serving store: " + json.dumps({
+        "bytes": Path(path).stat().st_size,
+        "plans": len(warm_sess._plans),
+        "counters": warm_sess.counters, "launches": launches_r,
+        "card": card}))
+
+    # EXPLAIN and EXPLAIN ANALYZE against the CPU dataset's
+    require(explain(sql1, ds) == explain(sql1, ds_cpu)
+            and explain_json(sql1, ds) == explain_json(sql1, ds_cpu),
+            "serving explain: differs from the CPU dataset's")
+    doc, launches_a = counted(lambda: explain_analyze(sql1, ds, root=0))
+    doc_cpu = explain_analyze(sql1, ds_cpu, root=0)
+    elapsed = doc["analyze"].pop("elapsed_us")
+    elapsed_cpu = doc_cpu["analyze"].pop("elapsed_us")
+    require(doc == doc_cpu, "serving explain_analyze: differs from the "
+            "CPU dataset's")
+    require(doc["analyze"]["result_count"] == SPEC.num_edges,
+            "serving explain_analyze: root 0 rows")
+    sdoc, launches_sa = counted(lambda: sess.explain_analyze(sql1,
+                                                             serving))
+    seen = sorted(r for b in sdoc["analyze"]["buckets"] for r in b["roots"])
+    require(seen == sorted(serving)
+            and all(a["actual"]["rows"] == a["result_count"]
+                    for b in sdoc["analyze"]["buckets"]
+                    for a in b["analyze"]),
+            "serving session explain_analyze: roots or actual rows")
+    print("serving explain: " + json.dumps({
+        "engine": doc["analyze"]["engine"],
+        "elapsed_us": elapsed, "cpu_elapsed_us": elapsed_cpu,
+        "predicted_rows": doc["analyze"]["predicted"]["rows"],
+        "actual_rows": doc["analyze"]["actual"]["rows"],
+        "levels_taken": doc["analyze"]["actual"]["level_dirs"],
+        "launches": launches_a, "session_launches": launches_sa,
+        "card": card}))
+
+    # the first calibrator refit on the card: default calibrate_every, a
+    # mix of three request shapes (the 32 roots and the eight under
+    # listing 1, the eight under aggregate_sum), served warm until a refit
+    # is accepted or REFIT_MAX_ROUNDS rounds have run
+    cal_sess = ServingSession(ds)
+    mix = ((sql1, serving), (sql1, eight), (sql_sum, eight))
+    for sql, roots in mix:                       # cold: not observed
+        cal_sess.submit(sql, roots)
+    cal_ms, rounds = [], 0
+    cal = cal_sess.calibrator
+    while cal.refits == 0 and rounds < REFIT_MAX_ROUNDS:
+        for k, (sql, roots) in enumerate(mix):
+            _, _, ms = timed_counted(lambda: cal_sess.submit(sql, roots))
+            if k == 0:
+                cal_ms.append(ms)
+        rounds += 1
+    require(cal.refits + cal.rejected_refits >= 1,
+            f"serving calibration: no refit after {rounds} rounds "
+            f"({cal.count} observations)")
+    picks = {}
+    for label, sql in PLANNER_QUERIES:
+        before = plan(sql, ds, constants=DEFAULT_CONSTANTS).best
+        after = plan(sql, ds, constants=cal.constants).best
+        picks[label] = {"default": before.label, "refit": after.label}
+        if after.label != before.label:
+            r, _ = counted(lambda: after.run(ds, 0))
+            require_equal(r, after.run(ds_cpu, 0), f"serving calibration "
+                          f"{label} refit pick {after.label}")
+    # what the refits were fitted to: each plan signature's mean measured
+    # bucket interval beside the prior's prediction for it
+    signatures = [{"engine": sig[0], "caps": [sig[2], sig[3]],
+                   "lanes": sig[-4], "dispatches": n,
+                   "mean_us": us / n, "levels": levels,
+                   "plain_bytes": plain,
+                   "prior_us": cal._predict(cal.prior, levels, plain,
+                                            kern)}
+                  for sig, (n, us, levels, plain, kern)
+                  in cal._sig_stats.items()]
+    print("serving calibration: " + json.dumps({
+        "observations": cal.count, "refits_accepted": cal.refits,
+        "refits_rejected": cal.rejected_refits,
+        "signatures": signatures,
+        "constants": cal.constants._asdict(),
+        "prior": DEFAULT_CONSTANTS._asdict(), "picks": picks,
+        "rounds": rounds, "warm_requests": len(cal_ms),
+        "warm_p50_ms": quantile(cal_ms, 0.5),
+        "warm_p99_ms": quantile(cal_ms, 0.99),
+        "roots_per_s": len(serving) / quantile(cal_ms, 0.5) * 1e3,
+        "card": card}))
+
+    # tracing: one warm request traced and checked, then the tracer's cost
+    tracer = Tracer(meta={"phase": "serving"})
+    sess.tracer = tracer
+    counted(lambda: sess.submit(sql1, serving))
+    sess.tracer = None
+    trace_path = f"{tmp}/trace.jsonl"
+    tracer.write_jsonl(trace_path)
+    records = read_jsonl(trace_path)
+    errors = check_trace(records, min_spans=5)
+    names = {r["name"] for r in records if r.get("type") == "span"}
+    require(not errors, f"serving trace: {errors}")
+    require({"request", "parse", "plan", "dispatch", "transfer"} <= names,
+            f"serving trace: spans {sorted(names)}")
+    on_ms, off_ms = [], []
+    for _ in range(TRACER_REPS):
+        for on, ms in ((False, off_ms), (True, on_ms)):
+            sess.tracer = Tracer() if on else None
+            _, _, t = timed_counted(lambda: sess.submit(sql1, serving))
+            ms.append(t)
+    sess.tracer = None
+    spans = [r for r in records if r.get("type") == "span"]
+
+    def span_ms(name):
+        return sum(r["dur_us"] for r in spans if r["name"] == name) / 1e3
+    print("serving trace: " + json.dumps({
+        "records": len(records), "spans": sorted(names),
+        "request_span_ms": span_ms("request"),
+        "transfer_span_ms": span_ms("transfer"),
+        "level_event_span_ms": span_ms("dispatch"),
+        "events": sum(r.get("type") == "event" for r in records),
+        "traced_warm_ms": statistics.median(on_ms),
+        "untraced_warm_ms": statistics.median(off_ms),
+        "tracer_cost_ms": statistics.median(on_ms)
+        - statistics.median(off_ms), "card": card}))
+
+    # the guards and a deadline that skips buckets behind a straggler
+    dl = ServingSession(ds, calibrate_every=0)
+    dl.submit(sql1, serving)                       # warm the plan
+    with faultinject.injected("straggler_sleep", STRAGGLER_SLEEP_S,
+                              times=None):
+        out, _ = counted(lambda: dl.submit(sql1, serving,
+                                           deadline_us=DEADLINE_US))
+    rep = dl.last_report
+    skipped = set(rep.skipped_roots)
+    require(rep.truncated and rep.skipped_buckets >= 1 and skipped,
+            f"serving deadline: nothing skipped ({rep})")
+    for i, (root, r, w) in enumerate(zip(serving, out, want)):
+        if root in skipped:
+            require(int(r.count) == 0, f"serving deadline lane {i}: a "
+                    f"skipped root has rows")
+        else:
+            require_equal(r, w, f"serving deadline lane {i}")
+    require([g.to_json() for g in rep.admission]
+            == [g.to_json() for g in rep_cpu.admission],
+            "serving deadline: admission decisions")
+    print("serving guards: " + json.dumps({
+        "admission": {d: sum(g.decision == d for g in rep.admission)
+                      for d in ("traverse", "degrade", "reject")},
+        "deadline_us": DEADLINE_US, "skipped_buckets": rep.skipped_buckets,
+        "skipped_roots": len(skipped), "served_roots": len(serving)
+        - len(skipped), "card": card}))
+
+    # the entry point, twice: the second run rehydrates its store
+    entry_store = f"{tmp}/entry_plans.json"
+    runs = []
+    for k in range(2):
+        trace = f"{tmp}/entry_trace_{k}.jsonl"
+        argv = [*ENTRY_ARGS, "--plan-store", entry_store, "--trace", trace]
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            stats, launches_e = counted(lambda: serve_mod.main(argv))
+        secs = time.perf_counter() - t0
+        text = buf.getvalue()
+        errors = check_trace(read_jsonl(trace), min_spans=5)
+        require(not errors, f"serving entry run {k}: trace {errors}")
+        runs.append({"seconds": secs, "stats": {
+            key: stats[key] for key in (
+                "requests", "plan_hits", "plan_misses", "parse_calls",
+                "stats_calls", "cost_calls", "latency_us_p50",
+                "latency_us_p99", "overflow_retries",
+                "overflow_lane_evictions", "calibration_observations")},
+            "rehydrated": "(rehydrated)" in text, "launches": launches_e})
+    require(not runs[0]["rehydrated"] and runs[1]["rehydrated"],
+            "serving entry: the second run did not rehydrate")
+    require("planning paid: 0 parse / 0 stats / 0 costing" in text
+            and all(runs[1]["stats"][k] == 0 for k in (
+                "parse_calls", "stats_calls", "cost_calls")),
+            f"serving entry: the rehydrated run paid planning: {text}")
+    print("serving entry: " + json.dumps({
+        "args": " ".join(ENTRY_ARGS), "runs": runs, "card": card}))
+    peak_mib = (torch.cuda.max_memory_allocated() - held) / 2 ** 20
+    print(f"serving path: {time.perf_counter() - t_phase:.3f} s (host "
+          f"clock); peak device memory {peak_mib:.1f} MiB above the "
+          f"{held / 2 ** 20:.1f} MiB held before the phase; launches "
+          f"{json.dumps(by_path['serving'])}")
 
 
 def timed_ms(fn) -> float:
@@ -3225,8 +3681,11 @@ def main() -> None:
     # stay out of every earlier path's numbers
     multiquery_phase(ds_paper, paper_cols, levels, card, by_path)
     del ds_paper
-    # the planner path last, on the table with the weight column
+    # the planner path, on the table with the weight column
     planner_phase(ds, ds_cpu, cols, levels, values, card, by_path)
+    # the serving layer last, on the same table
+    serving_phase(ds, ds_cpu, cols, levels, values, id_to_pos, card,
+                  by_path)
     for name, entry in kernels.items():
         entry["launches"] = sum(n[name] for n in by_path.values())
         entry["launches_by_path"] = {p: n[name] for p, n in by_path.items()}

@@ -69,7 +69,8 @@ __all__ = ["RecursiveQuery", "Dataset", "EngineCaps", "BFSResult",
            "run_query_multi", "result_lane", "resolve_device",
            "BucketTiming", "RetryPolicy", "DispatchReport", "SKIPPED",
            "overflow_retry_count", "lane_eviction_count",
-           "dispatch_buckets", "run_query_buckets", "plan_and_run"]
+           "dispatch_buckets", "run_query_buckets", "plan_and_run",
+           "explain", "explain_analyze"]
 
 Direction = Literal["outbound", "inbound", "both"]
 
@@ -832,6 +833,15 @@ def dispatch_buckets(buckets: Sequence, dispatch: Callable, *,
                         if done:
                             _note_lane_eviction(i, done, b.caps,
                                                 fallback_caps, tracer)
+                            # the evicted lanes' answers come from their
+                            # solo re-dispatches: clear their flags in the
+                            # bucket result, so that ``finish`` sees the
+                            # overflow of the lanes it delivers only (the
+                            # reference hands it the stale flags, and a
+                            # finish that checks overflow raises there)
+                            ov = r.overflow.clone()
+                            ov[done] = False
+                            r = r._replace(overflow=ov)
                         if len(done) < len(hit):
                             rep.denied_buckets.append(i)
             if finish is not None:
@@ -926,3 +936,19 @@ def plan_and_run(sql_or_ast, ds: Dataset, roots=None, **kwargs) -> BFSResult:
     :func:`repro_torch.planner.plan_and_run` for the keyword options."""
     from ..planner import plan_and_run as _impl
     return _impl(sql_or_ast, ds, roots, **kwargs)
+
+
+def explain(sql_or_ast, ds: Dataset, **kwargs) -> str:
+    """EXPLAIN the query: the ranked candidate engines with per-operator
+    estimated rows/bytes (see :mod:`repro_torch.planner.explain`)."""
+    from ..planner import explain as _impl
+    return _impl(sql_or_ast, ds, **kwargs)
+
+
+def explain_analyze(sql_or_ast, ds: Dataset, **kwargs) -> dict:
+    """EXPLAIN ANALYZE: plan, EXECUTE on the dataset's device, and
+    reconcile predicted vs. actual per-operator rows/bytes and per-level
+    push/pull directions (see
+    :func:`repro_torch.planner.explain.explain_analyze`)."""
+    from ..planner import explain_analyze as _impl
+    return _impl(sql_or_ast, ds, **kwargs)

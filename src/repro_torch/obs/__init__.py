@@ -4,7 +4,7 @@ torch import at module level).
 
 This package is a LEAF dependency: it imports nothing from
 :mod:`repro_torch.core`, so the engine can thread tracer and fault hooks
-through its hot paths without an import cycle.  The three surfaces:
+through its hot paths without an import cycle.  The surfaces:
 
 * :mod:`repro_torch.obs.trace` — a lightweight span/event :class:`Tracer`
   with JSON-lines and Chrome-trace (Perfetto-loadable) exporters, plus the
@@ -15,7 +15,11 @@ through its hot paths without an import cycle.  The three surfaces:
   a Prometheus-style text rendering;
 * :mod:`repro_torch.obs.faultinject` — the named fault-injection points
   the bucket executor consults (same disabled-path budget as the tracer:
-  one attribute read).
+  one attribute read);
+* :mod:`repro_torch.obs.check_trace` — the trace checker's rules
+  (:func:`~repro_torch.obs.check_trace.check_trace`: record fields, the
+  span forest, time nesting), runnable as ``python -m
+  repro_torch.obs.check_trace TRACE.jsonl``.
 
 The trace schema and the metrics catalog are those of docs/observability.md.
 """

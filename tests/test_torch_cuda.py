@@ -1315,3 +1315,161 @@ def test_measured_kernel_factor_on_card_keyed_apart(cuda, monkeypatch):
     want = run_query(kern.query, ds, 0)
     for field in ("positions", "count", "depth", "overflow", "row_depths"):
         assert torch.equal(getattr(got, field), getattr(want, field)), field
+
+
+# ---------------------------------------------------------------------------
+# the serving layer on the card
+# ---------------------------------------------------------------------------
+
+SERVING_ROOTS = [0, 1, 17, 2999, 5, 40, 77, 1500]
+
+
+def lane_kernel_levels(label, lane, num_vertices):
+    """The levels at which a bucket of ``label`` calls each per-level
+    kernel for one served lane (host tensors): ``frontier_expand`` at
+    every level of ``precursive``, at each sparse push level of the hybrid
+    engines; ``frontier_pull`` at each pull level; none for ``bitmap`` and
+    ``multiquery`` (outbound reach)."""
+    depth = int(lane.depth)
+    out = {"frontier_expand": set(), "frontier_pull": set()}
+    if label == "precursive":
+        out["frontier_expand"] = set(range(depth))
+        return out
+    if label in ("bitmap", "multiquery"):
+        return out
+    dirs = (lane.level_dirs.tolist() if lane.level_dirs is not None
+            else [0] * depth)
+    widths = torch.bincount(lane.row_depths[:int(lane.count)].long(),
+                            minlength=depth).tolist()
+    q = RecursiveQuery(label, 1, 0, EngineCaps(1, 1))
+    from repro_torch.core.engine import build_plan
+    step = build_plan(q).ops[0]
+    step = getattr(step, "push", step)
+    thr = max(1, int(num_vertices * step.switch_frac))
+    for d in range(depth):
+        if dirs[d] == 1:
+            out["frontier_pull"].add(d)
+        elif label in ("hybrid", "diropt_hybrid") and widths[d] < thr:
+            out["frontier_expand"].add(d)
+    return out
+
+
+def serving_launches(entry, lanes, num_vertices):
+    """One ``late_gather`` a bucket, and each per-level kernel once on
+    each level where some lane of the bucket calls it."""
+    want = {"frontier_expand": 0, "frontier_pull": 0, "late_gather": 0}
+    for b, c in zip(entry.buckets, entry.bucket_choices):
+        want["late_gather"] += 1
+        lv = [lane_kernel_levels(c.label, lanes[i], num_vertices)
+              for i in b.indices]
+        for k in ("frontier_expand", "frontier_pull"):
+            want[k] += len(set().union(*(x[k] for x in lv)))
+    return want
+
+
+def read_traversal_launches():
+    torch.cuda.synchronize()
+    return {"frontier_expand": fe_ops.LAUNCHES,
+            "frontier_pull": fp_ops.LAUNCHES, "late_gather": lg_ops.LAUNCHES}
+
+
+def assert_lane_equal(got, want):
+    for field in ("positions", "count", "depth", "overflow", "row_depths",
+                  "level_dirs", "vertex_values"):
+        g, w = getattr(got, field), getattr(want, field)
+        if w is None:
+            assert g is None, field
+            continue
+        assert not g.is_cuda and g.dtype == w.dtype, field
+        assert torch.equal(g, w), field
+    assert sorted(got.values) == sorted(want.values)
+    for k, w in want.values.items():
+        assert torch.equal(got.values[k], w), k
+
+
+def test_serving_session_on_card_matches_cpu(cuda):
+    """A card ``ServingSession`` answers a cold and a warm request with the
+    CPU session's lanes (on the host), bucket engines and plan, and each
+    dispatch ran its kernels exactly as the buckets' engines and levels
+    imply."""
+    from repro_torch.planner import ServingSession, paper_listing
+    ds, ds_cpu = planner_datasets(cuda)
+    sql = paper_listing(1, root=0, depth=8)
+    card = ServingSession(ds, calibrate_every=0)
+    cpu = ServingSession(ds_cpu, calibrate_every=0)
+    for _ in range(2):
+        before = read_traversal_launches()
+        got = card.submit(sql, SERVING_ROOTS)
+        after = read_traversal_launches()
+        want = cpu.submit(sql, SERVING_ROOTS)
+        for g, w in zip(got, want):
+            assert_lane_equal(g, w)
+        entry = card.plan_for(sql, SERVING_ROOTS)
+        assert [c.label for c in entry.bucket_choices] == \
+            [c.label for c in cpu.plan_for(sql, SERVING_ROOTS).bucket_choices]
+        assert card.plan_json(sql, SERVING_ROOTS) == \
+            cpu.plan_json(sql, SERVING_ROOTS)
+        assert {k: after[k] - before[k] for k in after} == \
+            serving_launches(entry, want, ds.num_vertices)
+    assert card.stats["overflow_retries"] == 0
+    assert card.stats["calibration_observations"] == \
+        cpu.stats["calibration_observations"] > 0
+
+
+def test_plan_store_on_card_rehydrates(cuda, tmp_path):
+    """A store written by a card session warms a new card session: zero
+    parse / statistics / costing passes and the same lanes."""
+    from repro_torch.planner import ServingSession, paper_listing
+    ds, _ = planner_datasets(cuda)
+    sql = paper_listing(1, root=0, depth=8)
+    path = str(tmp_path / "store.json")
+    cold = ServingSession(ds, calibrate_every=0)
+    want = cold.submit(sql, SERVING_ROOTS)
+    cold.save_plan_store(path)
+    ds2, _ = planner_datasets(cuda)
+    warm = ServingSession(ds2, calibrate_every=0, plan_store=path)
+    got = warm.submit(sql, SERVING_ROOTS)
+    assert warm.counters == {"parse_calls": 0, "stats_calls": 0,
+                             "cost_calls": 0}
+    for g, w in zip(got, want):
+        assert_lane_equal(g, w)
+    assert warm.plan_json(sql, SERVING_ROOTS) == \
+        cold.plan_json(sql, SERVING_ROOTS)
+
+
+def test_explain_analyze_on_card_matches_cpu(cuda):
+    """EXPLAIN ANALYZE executes on the card: the document equals the CPU
+    dataset's except the wall time, and the text EXPLAIN is the same."""
+    from repro_torch.planner import explain, explain_analyze, paper_listing
+    ds, ds_cpu = planner_datasets(cuda)
+    for n, engine in ((1, None), (1, "diropt"), (2, "precursive"),
+                      (3, None)):
+        sql = paper_listing(n, root=0, depth=8, payload_cols=4)
+        got = explain_analyze(sql, ds, engine=engine)
+        want = explain_analyze(sql, ds_cpu, engine=engine)
+        assert got["analyze"].pop("elapsed_us") > 0
+        want["analyze"].pop("elapsed_us")
+        assert got == want
+        assert explain(sql, ds) == explain(sql, ds_cpu)
+    assert ds.rows is None          # priced from the layout, never built
+
+
+def test_check_trace_on_a_card_trace(cuda, tmp_path):
+    """A traced card session's JSONL trace passes the port's checker, with
+    the cold ``compile`` span and the dispatch and transfer spans."""
+    from repro_torch.obs import Tracer, read_jsonl
+    from repro_torch.obs.check_trace import check_trace
+    from repro_torch.planner import ServingSession, paper_listing
+    ds, _ = planner_datasets(cuda)
+    tracer = Tracer(meta={"device": "cuda"})
+    s = ServingSession(ds, calibrate_every=0, tracer=tracer)
+    sql = paper_listing(1, root=0, depth=8)
+    s.submit(sql, SERVING_ROOTS)
+    s.submit(sql, SERVING_ROOTS)
+    path = str(tmp_path / "trace.jsonl")
+    tracer.write_jsonl(path)
+    records = read_jsonl(path)
+    assert check_trace(records, min_spans=5) == []
+    names = [r["name"] for r in records if r.get("type") == "span"]
+    assert names.count("request") == 2 and names.count("compile") == 1
+    assert {"parse", "plan", "dispatch", "transfer"} <= set(names)
