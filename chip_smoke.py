@@ -200,8 +200,10 @@ Phases (any failure raises and the script exits non-zero):
    constants, refits accepted and rejected, each listing's pick under
    them (a changed pick run on the card equal to the CPU run), each plan
    signature's mean measured bucket interval beside the prior's
-   prediction, warm p50 / p99 and roots per second (``serving
-   calibration:``); one warm request traced to JSONL and held to the
+   prediction, the last warm 32-root request's buckets with each one's
+   own ``elapsed_us`` (each below the request's time), the accepted
+   refits out of all and the calibrator's reason for its last rejection,
+   warm p50 / p99 and roots per second (``serving calibration:``); one warm request traced to JSONL and held to the
    port's ``check_trace``, its request, transfer and level-event span
    ms, and the warm ms with the tracer on and off, median of 5 each
    (``serving trace:``);
@@ -212,7 +214,31 @@ Phases (any failure raises and the script exits non-zero):
    height and depth 16, batches of 8, 16 requests, with a plan store and
    a trace, run twice, the second ``(rehydrated)`` with zero planning
    passes (``serving entry:``);
-7. print one ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}``
+7. GNN inference at the published widths (``src/repro/configs``:
+   GAT-Cora, GatedGCN, EGNN, GraphSAGE-Reddit) on seeded R-MAT graphs
+   and molecule batches of the published shapes (``GNN_SHAPES``), random
+   weights from a seed: GAT-Cora and GatedGCN on ``full_graph_sm``,
+   GatedGCN and EGNN (with coordinates) on ``molecule``, each
+   ``gnn_forward`` within ``rtol = atol = 1e-4`` of the port's CPU run;
+   GraphSAGE-Reddit's ``gnn_forward`` on ``ogb_products`` (2,449,029
+   vertices, 61,859,140 edges), its logits within 1e-4 of a forward
+   assembled here with the plain aggregation, ``spmm_segment`` launched
+   once a layer and held against its plain version at each layer's input
+   (D = 128, within 1e-5 of each row's sum of absolute terms of the plain
+   version run in float64, the float32 plain version's own error beside
+   it; ``gnn
+   spmm_segment:``, with the kernel's, the wrapper's, the plain and
+   ``torch.sparse.mm``'s times and the bound from the compulsory bytes
+   beside the bound from gathering an x row per edge); and its minibatch
+   path on ``minibatch_lg`` (1,024 seeds, fan-out (15, 10) over
+   114,615,892 edges): ``sample_block`` from a seeded card generator,
+   ``gather_block_features`` and ``sage_block_forward``, the layers equal
+   to the port's CPU sampler fed the same draws and the logits within
+   1e-4 of its CPU forward.  Each graph's host generation and copy to
+   the card print on a ``gnn graph:`` line, each row on a ``gnn:`` line
+   (warm ms, device ms, the host's share, peak MiB above what was held,
+   launches);
+8. print one ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}``
    line last.
 
 It imports nothing of JAX and nothing of the JAX package ``repro``.
@@ -234,11 +260,15 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
+from repro_torch.configs import registry  # noqa: E402
 from repro_torch.configs.deepfm import CONFIG as DEEPFM  # noqa: E402
+from repro_torch.configs.registry import (GNN_SHAPES,  # noqa: E402
+                                          RECSYS_SHAPES)
 from repro_torch.convert import dataset_from_numpy  # noqa: E402
 from repro_torch.core.bitmap import (diropt_hybrid_plan,  # noqa: E402
                                      diropt_plan)
-from repro_torch.core.csr import build_csr, expand_frontier  # noqa: E402
+from repro_torch.core.csr import (CSRIndex, build_csr,  # noqa: E402
+                                   expand_frontier)
 from repro_torch.core.engine import (PUSH_COUNTERPART,  # noqa: E402
                                      VALUE_ENGINE_NAMES, EngineCaps,
                                      RecursiveQuery, build_plan,
@@ -275,7 +305,10 @@ from repro_torch.kernels.spmm_segment.ref import (  # noqa: E402
     SPMM_CASES, spmm_segment_lanes_ref, spmm_segment_ref, spmm_tile_case)
 from repro_torch.kernels.spmm_segment.spmm_segment import (  # noqa: E402
     SHORT_ROW, tile_plan)
-from repro_torch.models import recsys  # noqa: E402
+from repro_torch.data import graphgen  # noqa: E402
+from repro_torch.data.sampler import (DRAW_HIGH,  # noqa: E402
+                                      gather_block_features, sample_block)
+from repro_torch.models import gnn, recsys  # noqa: E402
 from repro_torch.planner import (DEFAULT_CONSTANTS,  # noqa: E402
                                  ServingSession, admit_roots, calibrate,
                                  explain, explain_analyze, explain_json,
@@ -310,10 +343,9 @@ BAG_TOL = 1e-5
 # DeepFM paths: sums over fields and the MLP's dot products run in another
 # order on the card than on the CPU
 DEEPFM_TOL = dict(rtol=2e-5, atol=2e-5)
-# RECSYS_SHAPES of src/repro/configs/registry.py
-P99_BATCH, P99_REQUESTS = 512, 8
-BULK_BATCH = 262_144
-N_CANDIDATES = 1_000_000
+P99_BATCH, P99_REQUESTS = RECSYS_SHAPES["serve_p99"]["batch"], 8
+BULK_BATCH = RECSYS_SHAPES["serve_bulk"]["batch"]
+N_CANDIDATES = RECSYS_SHAPES["retrieval_cand"]["n_candidates"]
 PARAM_SEED = 0
 NEG_SEED = 4                 # the negative positions of late_gather's checks
 BATCH_ROOTS = 8              # benchmarks/exp1_bfs.py's lockstep batch
@@ -1265,8 +1297,11 @@ def frontier_pull_lane_phase(ds, frontier, visited, level, flush):
 
 def spmm_case(x, src, dst, w, num_out: int, check: str, flush):
     """``spmm_segment`` against its plain version on the card, ``check``
-    ``exact``, ``close`` (SPMM_TOL) or ``scaled`` (within 1e-5 of each
-    row's sum of absolute terms, for rows of thousands of edges).  ``ms`` is
+    ``exact``, ``close`` (SPMM_TOL), ``scaled`` (within 1e-5 of each
+    row's sum of absolute terms, for rows of thousands of edges) or
+    ``f64`` (within 1e-5 of each row's sum of absolute terms of the plain
+    version run in float64, for rows of 10^5 edges; the float32 plain
+    version's errors against it print beside the kernel's).  ``ms`` is
     the call the engine makes each level (the kernel on edges already in
     destination order); ``wrapper_ms`` adds the wrapper's stable sort;
     ``library_ms`` is ``torch.sparse.mm`` of the (num_out x N) CSR matrix
@@ -1290,11 +1325,30 @@ def spmm_case(x, src, dst, w, num_out: int, check: str, flush):
         require(bool(torch.isclose(got, want, **SPMM_TOL).all()),
                 f"{label} differs from its plain version beyond "
                 f"{SPMM_TOL}")
-    else:
+    elif check == "scaled":
         scale = spmm_segment_ref(x.abs(), src, dst, w.abs(), num_out)
         require(bool(((got - want).abs() <= 1e-5 * scale + 1e-5).all()),
                 f"{label} differs from its plain version beyond 1e-5 of "
                 f"the rows' absolute sums")
+    else:
+        # the plain version in float64 on the same tensors: a float32 sum
+        # of one row's 10^5 non-negative terms by atomics drifts past 1e-5
+        # of the row's sum, so the float32 plain version is no yardstick
+        # there
+        truth = spmm_segment_ref(x.double(), src, dst, w.double(), num_out)
+        scale = spmm_segment_ref(x.abs().double(), src, dst,
+                                 w.abs().double(), num_out)
+        require(bool(((got.double() - truth).abs()
+                      <= 1e-5 * scale + 1e-5).all()),
+                f"{label} differs from its plain version in float64 beyond "
+                f"1e-5 of the rows' absolute sums")
+        f64 = {"max_abs_err_f64": max_abs_err(got, truth),
+               "plain_max_abs_err_f64": max_abs_err(want, truth),
+               "max_err_over_abs_sum_f64": float(
+                   ((got.double() - truth).abs() / (scale + 1e-30)).max()),
+               "plain_max_err_over_abs_sum_f64": float(
+                   ((want.double() - truth).abs() / (scale + 1e-30)).max())}
+        del truth, scale
     live = (src >= 0) & (src < n) & (dst >= 0) & (dst < num_out)
     n_live = int(live.sum())
     rows = int(torch.unique(src[live]).numel())
@@ -1314,6 +1368,8 @@ def spmm_case(x, src, dst, w, num_out: int, check: str, flush):
 
     return {
         "max_abs_err": max_abs_err(got, want),
+        **(f64 if check == "f64" else {}),
+        "bytes": nbytes,
         "ms": time_ms(call, flush),
         "wrapper_ms": time_ms(lambda: spmm_ops.spmm_segment(
             x, src, dst, w, num_out), flush),
@@ -3035,17 +3091,42 @@ def serving_checks(ds, ds_cpu, cols: dict, levels: list, values: dict,
     # listing 1, the eight under aggregate_sum), served warm until a refit
     # is accepted or REFIT_MAX_ROUNDS rounds have run
     cal_sess = ServingSession(ds)
+    # each bucket's BucketTiming as the executor reports it, read beside
+    # the session's own observer
+    bucket_timings = []
+    session_observer = cal_sess._observer
+
+    def tapped_observer(entry, calibrate):
+        inner = session_observer(entry, calibrate)
+
+        def observe(t):
+            bucket_timings.append(
+                (t, entry.bucket_choices[t.index].engine))
+            inner(t)
+        return observe
+    cal_sess._observer = tapped_observer
     mix = ((sql1, serving), (sql1, eight), (sql_sum, eight))
     for sql, roots in mix:                       # cold: not observed
         cal_sess.submit(sql, roots)
-    cal_ms, rounds = [], 0
+    cal_ms, rounds, last_buckets = [], 0, []
     cal = cal_sess.calibrator
     while cal.refits == 0 and rounds < REFIT_MAX_ROUNDS:
         for k, (sql, roots) in enumerate(mix):
+            del bucket_timings[:]
             _, _, ms = timed_counted(lambda: cal_sess.submit(sql, roots))
             if k == 0:
                 cal_ms.append(ms)
+                last_buckets = [{"bucket": t.index, "lanes": t.lanes,
+                                 "engine": engine,
+                                 "elapsed_us": t.elapsed_us,
+                                 "retried": t.retried}
+                                for t, engine in bucket_timings]
+                last_request_ms = ms
         rounds += 1
+    require(len(last_buckets) >= 1 and all(
+        b["elapsed_us"] < last_request_ms * 1e3 for b in last_buckets),
+        f"serving calibration: bucket timings {last_buckets} against a "
+        f"{last_request_ms} ms request")
     require(cal.refits + cal.rejected_refits >= 1,
             f"serving calibration: no refit after {rounds} rounds "
             f"({cal.count} observations)")
@@ -3071,6 +3152,12 @@ def serving_checks(ds, ds_cpu, cols: dict, levels: list, values: dict,
     print("serving calibration: " + json.dumps({
         "observations": cal.count, "refits_accepted": cal.refits,
         "refits_rejected": cal.rejected_refits,
+        "refits": f"{cal.refits} accepted of "
+                  f"{cal.refits + cal.rejected_refits}",
+        "rejection": cal.last_rejection,
+        "last_32_root_request_ms": last_request_ms,
+        "last_32_root_buckets": last_buckets,
+        "bucket_elapsed_us_sum": sum(b["elapsed_us"] for b in last_buckets),
         "signatures": signatures,
         "constants": cal.constants._asdict(),
         "prior": DEFAULT_CONSTANTS._asdict(), "picks": picks,
@@ -3260,6 +3347,279 @@ def exp_line(name: str, fig: str, engines, payload_cols: int, baseline: str,
     return {"exp": name, "paper": fig, "payload_cols": payload_cols,
             "row_bytes": 4 * ds.rows.width, "root": 0, "depth": MAX_DEPTH,
             "caps": list(CAPS), "engines": entries, "card": card}
+
+
+# ---------------------------------------------------------------------------
+# GNN inference (phase 7)
+# ---------------------------------------------------------------------------
+
+GNN_SEED = 0                   # graphs, coordinates and minibatch seeds
+SAMPLE_SEED = 1                # the card generator of the sampler's draws
+# tests/test_torch_gnn.py's tolerance between the port and the reference:
+# matmuls and segment sums add in another order on the card and the CPU
+GNN_TOL = dict(rtol=1e-4, atol=1e-4)
+# the rows, in the order they run: (arch, shape), each at its published
+# width (src/repro/configs/*.py) and its published shape
+# (src/repro/configs/registry.py GNN_SHAPES); GatedGCN stays off
+# ogb_products, where each (E, 70) float32 edge tensor would be 17 GB
+GNN_ROWS = (("gat-cora", "full_graph_sm"), ("gatedgcn", "full_graph_sm"),
+            ("gatedgcn", "molecule"), ("egnn", "molecule"),
+            ("graphsage-reddit", "ogb_products"),
+            ("graphsage-reddit", "minibatch_lg"))
+
+
+def tree_to(tree, device):
+    """A parameter tree (dicts and lists of tensors) on ``device``."""
+    if isinstance(tree, dict):
+        return {k: tree_to(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [tree_to(v, device) for v in tree]
+    return tree.to(device)
+
+
+def gnn_graph(arch: str, shape: str, card: str) -> tuple[dict, dict, dict]:
+    """The shape's seeded graph as numpy arrays (src, dst, feats and, for
+    EGNN, coords), its dims, and the same arrays on the card; prints the
+    host's generation time and the copy's on a line of their own."""
+    dims = GNN_SHAPES[shape]
+    t0 = time.perf_counter()
+    if dims["kind"] == "molecule":
+        g = graphgen.make_molecule_batch(dims["batch"], dims["n_nodes"],
+                                         dims["n_edges"], dims["d_feat"],
+                                         seed=GNN_SEED)
+    else:
+        g = graphgen.make_graph(dims["n_nodes"], dims["n_edges"],
+                                dims["d_feat"], dims["n_classes"],
+                                seed=GNN_SEED)
+    host = {"src": g.src, "dst": g.dst, "feats": g.feats}
+    if arch == "egnn":
+        host["coords"] = np.random.default_rng(GNN_SEED + 1).standard_normal(
+            (g.num_vertices, 3)).astype(np.float32)
+    gen_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    graph = {k: torch.from_numpy(v).to(DEVICE) for k, v in host.items()}
+    torch.cuda.synchronize()
+    copy_s = time.perf_counter() - t0
+    print("gnn graph: " + json.dumps({
+        "shape": shape, "arch": arch, "V": g.num_vertices,
+        "E": int(g.src.shape[0]), "d_feat": dims["d_feat"],
+        "max_in_degree": int(np.bincount(g.dst).max()),
+        "generate_s": gen_s, "to_card_s": copy_s,
+        "to_card_mib": sum(v.nbytes for v in host.values()) / 2 ** 20,
+        "card": card}), flush=True)
+    return host, dims, graph
+
+
+def gnn_params(cfg, dims: dict) -> dict:
+    """Random weights at the config's width on the card, from a seeded
+    CUDA generator."""
+    return gnn.init_gnn(cfg, dims["d_feat"], dims["n_classes"],
+                        torch.Generator(device=DEVICE).manual_seed(PARAM_SEED),
+                        DEVICE)
+
+
+def gnn_run(label: str, fn, by_path: dict, want_spmm: int) -> tuple:
+    """One counted run of ``fn`` (the path's), its launches checked
+    (``spmm_segment`` ``want_spmm`` times, nothing else), then its warm
+    ms, profile and peak device memory above what was held before it."""
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out, launches = counted_into(by_path["gnn"], fn)
+    torch.cuda.synchronize()
+    peak_mib = (torch.cuda.max_memory_allocated() - held) / 2 ** 20
+    require(launches == {**dict.fromkeys(KERNEL_OPS, 0),
+                         "spmm_segment": want_spmm},
+            f"{label}: launches {launches}, want spmm_segment {want_spmm} "
+            f"times and nothing else")
+    warm = warm_latency_ms(fn)
+    prof = profile_call(label, fn, warm)
+    return out, {"warm_ms": warm, "device_ms": prof["device_ms"],
+                 "host_share": prof["idle_share"],
+                 "device_launches": prof["device_launches"],
+                 "peak_mib": peak_mib, "spmm_segment_launches": want_spmm,
+                 "launches": launches, "top": prof["top"]}
+
+
+def require_close(got: torch.Tensor, want: torch.Tensor, label: str,
+                  other: str) -> float:
+    require(got.shape == want.shape and bool(got.isfinite().all()),
+            f"{label}: shape {tuple(got.shape)} or a non-finite value")
+    require(bool(torch.isclose(got, want, **GNN_TOL).all()),
+            f"{label}: differs from {other} beyond {GNN_TOL}")
+    return max_abs_err(got, want)
+
+
+def plain_sage_forward(params: dict, graph: dict) -> torch.Tensor:
+    """GraphSAGE's full-graph forward assembled here from its layers with
+    the plain aggregation (``spmm_segment_ref``), on the graph's device."""
+    src, dst, feats = graph["src"], graph["dst"], graph["feats"]
+    n = feats.shape[0]
+    ones = torch.ones(src.shape, dtype=torch.float32, device=src.device)
+    deg = torch.clamp(torch.bincount(dst, minlength=n).to(torch.float32),
+                      min=1.0)
+
+    def dense(p, x):
+        return x @ p["w"] + p["b"]
+    h = dense(params["embed_in"], feats)
+    for lp in params["layers"]:
+        mean = spmm_segment_ref(h, src, dst, ones, n) / deg[:, None]
+        h = torch.relu(dense(lp["self"], h) + dense(lp["nbr"], mean))
+    return dense(params["head"], h)
+
+
+def gnn_full_graph_row(arch: str, shape: str, card: str, by_path: dict,
+                       flush) -> dict:
+    """``gnn_forward`` of ``arch`` on ``shape`` through the path's counters
+    and against its check: the port's CPU run of the same graph and
+    weights, or, on ogb_products, the forward with the plain aggregation
+    on the card and ``spmm_segment`` against its plain version at each
+    layer's input (``kernel``, the kernel's numbers there)."""
+    cfg, _ = registry.get_config(arch)
+    host, dims, graph = gnn_graph(arch, shape, card)
+    params = gnn_params(cfg, dims)
+    n = host["feats"].shape[0]
+    label = f"gnn {arch} {shape}"
+    want_spmm = cfg.n_layers if cfg.kind == "graphsage" else 0
+    logits, row = gnn_run(label, lambda: gnn.gnn_forward(params, cfg, graph),
+                          by_path, want_spmm)
+    require(tuple(logits.shape) == (n, dims["n_classes"]),
+            f"{label}: logits {tuple(logits.shape)}")
+    row = {"arch": arch, "config": cfg.name, "shape": shape,
+           "layers": cfg.n_layers, "d_hidden": cfg.d_hidden,
+           "heads": cfg.n_heads, "V": n, "E": int(host["src"].shape[0]),
+           "d_feat": dims["d_feat"], "classes": dims["n_classes"], **row}
+    if shape != "ogb_products":
+        want = gnn.gnn_forward(tree_to(params, "cpu"), cfg,
+                               {k: torch.from_numpy(v)
+                                for k, v in host.items()})
+        row["max_abs_err"] = require_close(logits.cpu(), want, label,
+                                           "the port's CPU run")
+        row["against"] = "the port's CPU run"
+        row["tol"] = GNN_TOL
+        return {**row, "card": card}
+    # the whole forward against the plain aggregation on the card, then
+    # the kernel at each sage_layer's input
+    want = plain_sage_forward(params, graph)
+    row["max_abs_err"] = require_close(logits, want, label,
+                                       "the plain-aggregation forward")
+    row["against"] = "the plain-aggregation forward on the card"
+    row["tol"] = GNN_TOL
+    del want
+    src, dst = graph["src"], graph["dst"]
+    row["sort_ms"] = time_ms(lambda: gnn.sort_edges(src, dst, n), flush)
+    edges = gnn.sort_edges(src, dst, n)
+    ones = edges.ones
+    h = graph["feats"] @ params["embed_in"]["w"] + params["embed_in"]["b"]
+    del graph["feats"]
+    kernel = {}
+    for li, lp in enumerate(params["layers"]):
+        case, _ = spmm_case(h, src, dst, ones, n, "f64", flush)
+        e, d = src.shape[0], h.shape[1]
+        gathered = e * d * 4 + (n + 1) * 4 + e * 8 + n * d * 4
+        case.update({
+            "bound_uses": "the compulsory bytes: offsets, src and w once, "
+                          "each distinct x row once, the output once",
+            "gathered_bytes": gathered,
+            "bound_gathered_ms": bound_ms(gathered, 2.0 * e * d),
+            "tol": "1e-5 of each row's sum of absolute terms, against "
+                   "the plain version in float64"})
+        kernel[f"layer{li}"] = case
+        print("gnn spmm_segment: " + json.dumps({
+            "layer": li, **case, "card": card}), flush=True)
+        if li + 1 < len(params["layers"]):
+            h = gnn.sage_layer(lp, h, src, dst, n, edges)
+    row["kernel"] = kernel
+    return {**row, "card": card}
+
+
+def gnn_minibatch_row(card: str, by_path: dict) -> dict:
+    """GraphSAGE-Reddit on minibatch_lg: ``sample_block`` (draws from a
+    seeded card generator) + ``gather_block_features`` +
+    ``sage_block_forward`` for 1,024 seeds at fan-out (15, 10); the layers
+    equal to the port's CPU sampler fed the same draws (regenerated from
+    the same seed) over the card's CSR, the logits to its CPU forward."""
+    arch, shape = "graphsage-reddit", "minibatch_lg"
+    base, _ = registry.get_config(arch)
+    host, dims, graph = gnn_graph(arch, shape, card)
+    fanouts = tuple(dims["fanout"])
+    cfg = dataclasses.replace(base, sample_sizes=fanouts)
+    v = host["feats"].shape[0]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    csr = build_csr(graph.pop("src"), v)
+    torch.cuda.synchronize()
+    csr_s = time.perf_counter() - t0
+    dst, feats = graph["dst"], graph["feats"]
+    seeds = torch.from_numpy(np.random.default_rng(GNN_SEED).choice(
+        v, dims["batch_nodes"], replace=False).astype(np.int32)).to(DEVICE)
+    params = gnn_params(cfg, dims)
+    label = f"gnn {arch} {shape}"
+
+    def step(draws=None):
+        gen = None if draws is not None else \
+            torch.Generator(device=DEVICE).manual_seed(SAMPLE_SEED)
+        layers = sample_block(gen, csr, dst, seeds, fanouts, draws=draws)
+        block = {"layer_feats": gather_block_features(feats, layers)}
+        return layers, gnn.sage_block_forward(params, cfg, block)
+    (layers, logits), row = gnn_run(label, step, by_path, 0)
+    sizes = [t.shape[0] for t in layers]
+    want_sizes = [dims["batch_nodes"]]
+    for f in fanouts:
+        want_sizes.append(want_sizes[-1] * f)
+    require(sizes == want_sizes, f"{label}: layer sizes {sizes}")
+    # the same draws, regenerated from the seed on the card
+    gen = torch.Generator(device=DEVICE).manual_seed(SAMPLE_SEED)
+    draws, n = [], dims["batch_nodes"]
+    for f in fanouts:
+        draws.append(torch.randint(0, DRAW_HIGH, (n, f), generator=gen,
+                                   device=DEVICE, dtype=torch.int32))
+        n *= f
+    again, _ = step(draws=draws)
+    require(all(torch.equal(a, b) for a, b in zip(again, layers)),
+            f"{label}: the regenerated draws give other layers")
+    csr_cpu = CSRIndex(csr.indptr.cpu(), csr.perm.cpu())
+    t0 = time.perf_counter()
+    layers_cpu = sample_block(None, csr_cpu, torch.from_numpy(host["dst"]),
+                              seeds.cpu(), fanouts,
+                              draws=[d.cpu() for d in draws])
+    require(all(torch.equal(a.cpu(), b) for a, b in zip(layers, layers_cpu)),
+            f"{label}: the card's layers differ from the CPU sampler's")
+    want = gnn.sage_block_forward(tree_to(params, "cpu"), cfg, {
+        "layer_feats": gather_block_features(torch.from_numpy(host["feats"]),
+                                             layers_cpu)})
+    cpu_s = time.perf_counter() - t0
+    err = require_close(logits.cpu(), want, label, "the port's CPU run")
+    return {"arch": arch, "config": cfg.name, "shape": shape,
+            "layers": cfg.n_layers, "d_hidden": cfg.d_hidden,
+            "fanout": list(fanouts), "seeds": dims["batch_nodes"], "V": v,
+            "E": int(host["dst"].shape[0]), "d_feat": dims["d_feat"],
+            "classes": dims["n_classes"], "sampled": sizes,
+            "csr_build_s": csr_s, **row, "max_abs_err": err,
+            "against": "the port's CPU sampler and forward (same draws)",
+            "tol": GNN_TOL, "cpu_s": cpu_s, "card": card}
+
+
+def gnn_phase(card: str, by_path: dict, flush) -> dict:
+    """Phase 7: every row of GNN_ROWS on the card (one ``gnn:`` line each);
+    returns ``spmm_segment``'s numbers at ogb_products by layer."""
+    t_phase = time.perf_counter()
+    by_path["gnn"] = dict.fromkeys(KERNEL_OPS, 0)
+    kernel = None
+    for arch, shape in GNN_ROWS:
+        if shape == "minibatch_lg":
+            row = gnn_minibatch_row(card, by_path)
+        else:
+            row = gnn_full_graph_row(arch, shape, card, by_path, flush)
+            kernel = row.pop("kernel", kernel)
+        print("gnn: " + json.dumps(row), flush=True)
+        torch.cuda.empty_cache()
+    require(by_path["gnn"]["spmm_segment"] > 0,
+            "the GNN path never launched spmm_segment")
+    print(f"gnn phase: {time.perf_counter() - t_phase:.3f} s (host clock), "
+          f"launches {json.dumps(by_path['gnn'])}", flush=True)
+    return kernel
 
 
 # ---------------------------------------------------------------------------
@@ -3686,6 +4046,11 @@ def main() -> None:
     # the serving layer last, on the same table
     serving_phase(ds, ds_cpu, cols, levels, values, id_to_pos, card,
                   by_path)
+    # GNN inference last: its graphs come to the card after every earlier
+    # path, whose numbers their memory stays out of
+    del ds, ds_cpu
+    torch.cuda.empty_cache()
+    sp["ogb_products"] = gnn_phase(card, by_path, flush)
     for name, entry in kernels.items():
         entry["launches"] = sum(n[name] for n in by_path.values())
         entry["launches_by_path"] = {p: n[name] for p, n in by_path.items()}

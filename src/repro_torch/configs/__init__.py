@@ -1,1 +1,2 @@
-"""Configurations of the models the port serves (recsys so far)."""
+"""Configurations of the models the port serves: DeepFM and the four GNN
+architectures (``registry`` maps an arch id to its module)."""

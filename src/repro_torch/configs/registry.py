@@ -1,0 +1,67 @@
+"""Architecture and shape registry of the models the port serves: the four
+GNN architectures and DeepFM, with their published input shapes and the
+reduced shapes of the CPU tests (the reference's
+``src/repro/configs/registry.py``, its own copy).  The language models and
+the paper's BFS arch are left out: the port has no LM yet, and the BFS
+deployment is driven through ``repro_torch.core.engine`` directly.
+"""
+from __future__ import annotations
+
+import importlib
+from typing import Any
+
+ARCHS: dict[str, tuple[str, str]] = {
+    # arch id                  family    config module
+    "gatedgcn":               ("gnn", "repro_torch.configs.gatedgcn"),
+    "graphsage-reddit":       ("gnn", "repro_torch.configs.graphsage_reddit"),
+    "egnn":                   ("gnn", "repro_torch.configs.egnn"),
+    "gat-cora":               ("gnn", "repro_torch.configs.gat_cora"),
+    "deepfm":                 ("recsys", "repro_torch.configs.deepfm"),
+}
+
+GNN_SHAPES: dict[str, dict[str, Any]] = {
+    "full_graph_sm": dict(kind="full_graph", n_nodes=2708, n_edges=10556,
+                          d_feat=1433, n_classes=7),
+    "minibatch_lg":  dict(kind="minibatch", n_nodes=232965,
+                          n_edges=114615892, batch_nodes=1024,
+                          fanout=(15, 10), d_feat=602, n_classes=41),
+    "ogb_products":  dict(kind="full_graph", n_nodes=2449029,
+                          n_edges=61859140, d_feat=100, n_classes=47),
+    "molecule":      dict(kind="molecule", n_nodes=30, n_edges=64,
+                          batch=128, d_feat=16, n_classes=2),
+}
+
+RECSYS_SHAPES: dict[str, dict[str, Any]] = {
+    "train_batch":    dict(kind="train", batch=65536),
+    "serve_p99":      dict(kind="serve", batch=512),
+    "serve_bulk":     dict(kind="serve", batch=262144),
+    "retrieval_cand": dict(kind="retrieval", batch=1,
+                           n_candidates=1_000_000),
+}
+
+# reduced dims for per-cell smoke tests (same code path, CPU-sized)
+SMOKE_GNN_SHAPES = {
+    "full_graph_sm": dict(kind="full_graph", n_nodes=120, n_edges=480,
+                          d_feat=24, n_classes=5),
+    "minibatch_lg":  dict(kind="minibatch", n_nodes=500, n_edges=4000,
+                          batch_nodes=16, fanout=(4, 3), d_feat=24,
+                          n_classes=5),
+    "ogb_products":  dict(kind="full_graph", n_nodes=300, n_edges=1500,
+                          d_feat=24, n_classes=5),
+    "molecule":      dict(kind="molecule", n_nodes=12, n_edges=30, batch=8,
+                          d_feat=8, n_classes=2),
+}
+SMOKE_RECSYS_SHAPES = {
+    "train_batch":    dict(kind="train", batch=64),
+    "serve_p99":      dict(kind="serve", batch=16),
+    "serve_bulk":     dict(kind="serve", batch=128),
+    "retrieval_cand": dict(kind="retrieval", batch=1, n_candidates=512),
+}
+
+
+def get_config(arch: str, smoke: bool = False):
+    """``(config, family)`` of ``arch``: its module's ``SMOKE`` when
+    ``smoke``, else its ``CONFIG``."""
+    family, mod_name = ARCHS[arch]
+    mod = importlib.import_module(mod_name)
+    return (mod.SMOKE if smoke else mod.CONFIG), family

@@ -6,7 +6,8 @@ ds.table.columns.items()}``) and rebuilds its own ``Dataset`` on a device,
 keeping each column's dtype.  DeepFM's parameters cross the same way: the
 reference's ``init_deepfm`` pytree as numpy arrays (for example
 ``jax.tree_util.tree_map(np.asarray, params)``) become the port's
-parameter dictionary.
+parameter dictionary, and the GNN archs' ``init_gnn`` trees become the
+port's ``models.gnn`` trees.
 """
 from __future__ import annotations
 
@@ -18,7 +19,8 @@ import torch
 from .core.engine import Dataset, resolve_device
 from .core.table import ColumnTable
 
-__all__ = ["dataset_from_numpy", "deepfm_params_from_numpy"]
+__all__ = ["dataset_from_numpy", "deepfm_params_from_numpy",
+           "gnn_params_from_numpy"]
 
 
 def dataset_from_numpy(columns: Mapping[str, np.ndarray], num_vertices: int,
@@ -55,3 +57,21 @@ def deepfm_params_from_numpy(params: Mapping[str, Any], device=None
     out["mlp"] = [{k: _tensor(layer[k], device) for k in ("w", "b")}
                   for layer in params["mlp"]]
     return out
+
+
+def gnn_params_from_numpy(params: Any, device=None) -> Any:
+    """The port's GNN parameters (``models.gnn``) from the reference's
+    ``init_gnn`` tree as numpy arrays (for example
+    ``jax.tree_util.tree_map(np.asarray, params)``): the same nesting of
+    dicts and lists, each array a tensor of its dtype on ``device``
+    (``None``: the card, raising where CUDA is unavailable)."""
+    device = resolve_device(device)
+
+    def walk(node):
+        if isinstance(node, Mapping):
+            return {k: walk(v) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return [walk(v) for v in node]
+        return _tensor(node, device)
+
+    return walk(params)

@@ -514,11 +514,13 @@ class BucketTiming:
     :func:`dispatch_buckets` to its observer (the planner's calibration
     feedback loop consumes these).
 
-    ``elapsed_us`` attributes DEVICE time to this bucket: the interval from
-    max(this bucket's launch, the previous bucket's completion) to this
-    bucket's results being materialized.  Buckets are launched back-to-back
-    and executed in order on one stream, so without the max() every
-    bucket's wait on its predecessors would be double-counted."""
+    ``elapsed_us`` is this bucket's own wall-clock time: from the start of
+    its dispatch to its results being materialized, covering its retries,
+    evictions, ``finish`` and host copy.  The port dispatches each bucket
+    only after the previous one is done (its drivers read the host once a
+    level, so a dispatch runs to its end before it returns), so no
+    bucket's interval holds another's work.  The reference launches every
+    bucket first and measures from max(launch, previous completion)."""
 
     index: int                 # position in the buckets sequence
     lanes: int                 # real lanes (len(bucket.indices))
@@ -704,18 +706,19 @@ def dispatch_buckets(buckets: Sequence, dispatch: Callable, *,
     lane axis).  A bucket needs only ``indices`` (its lanes in the
     original root vector), ``roots`` and ``caps``.  The executor:
 
-    * launches EVERY bucket before touching any result, then checks each
-      one's overflow in a second loop (the port's drivers read the host
-      once a level, so a launch already waits for most of its work; the
-      order of operations is the reference's all the same).  EXCEPT under
-      a ``deadline_us`` budget: then buckets launch lazily, one at a time,
-      and a bucket is SKIPPED (its lanes filled with the :data:`SKIPPED`
-      sentinel, recorded on the ``report``) when the budget is already
-      exhausted or the straggler monitor's predicted wall time
-      (``straggler.expected``) no longer fits the remainder; skip-vs-launch
-      is decided BEFORE paying the dispatch cost.  The first bucket always
-      launches: a request makes progress, the budget only stops FURTHER
-      work;
+    * dispatches the buckets one at a time, each just before its own
+      overflow check, so that each bucket's timing is its own (the
+      reference launches every bucket before it reads any, because its
+      launches are asynchronous; the port's drivers read the host once a
+      level, so a launch loop would run every bucket to its end and charge
+      the whole request to the first bucket).  Under a ``deadline_us``
+      budget a bucket is SKIPPED (its lanes filled with the
+      :data:`SKIPPED` sentinel, recorded on the ``report``) when the
+      budget is already exhausted or the straggler monitor's predicted
+      wall time (``straggler.expected``) no longer fits the remainder;
+      skip-vs-launch is decided BEFORE paying the dispatch cost.  The
+      first bucket always launches: a request makes progress, the budget
+      only stops FURTHER work;
     * retries on overflow through the :class:`RetryPolicy` (bucket caps
       are predictions; bucketing must never turn a valid query into a
       truncated result).  When overflow is PER LANE and only some real
@@ -747,23 +750,15 @@ def dispatch_buckets(buckets: Sequence, dispatch: Callable, *,
     rep = report if report is not None else DispatchReport()
     # the executor owns bucket-granular tracing: suppress the global
     # tracer around nested dispatches so per-root instrumentation inside
-    # run_query_batch cannot serialize the launch loop, and emit
+    # run_query_batch stays out of the timed intervals, and emit
     # per-bucket spans/events from the one measurement point instead
     tracer = _trace.current_tracer()
     prev_tracer = _trace.set_tracer(None) if tracer is not None else None
     try:
-        lazy = deadline_us is not None
         t_start = time.perf_counter()
-        launched = []
-        if not lazy:
-            for i, b in enumerate(buckets):
-                t0 = time.perf_counter()
-                launched.append((i, b, t0, dispatch(i, b, b.caps)))
-        prev_done = None
         timings = []
-        for k in range(len(buckets)):
-            if lazy:
-                i, b = k, buckets[k]
+        for i, b in enumerate(buckets):
+            if deadline_us is not None:
                 elapsed_us = (time.perf_counter() - t_start) * 1e6
                 predicted_us = (straggler.expected
                                 if straggler is not None else 0.0)
@@ -779,10 +774,8 @@ def dispatch_buckets(buckets: Sequence, dispatch: Callable, *,
                         rep.skipped_lanes.append(idx)
                         out[idx] = SKIPPED
                     continue
-                t0 = time.perf_counter()
-                r = dispatch(i, b, b.caps)
-            else:
-                i, b, t0, r = launched[k]
+            t0 = time.perf_counter()
+            r = dispatch(i, b, b.caps)
             if _fault._ACTIVE:
                 d = _fault.consume("straggler_sleep")
                 if d:
@@ -872,8 +865,7 @@ def dispatch_buckets(buckets: Sequence, dispatch: Callable, *,
                 index=i, lanes=len(b.indices), padded_lanes=len(b.roots),
                 caps=(fallback_caps if retried else b.caps),
                 retried=retried,
-                elapsed_us=(t_done - (t0 if prev_done is None
-                                      else max(t0, prev_done))) * 1e6,
+                elapsed_us=(t_done - t0) * 1e6,
                 predicted_caps=b.caps, evicted_lanes=len(evicted))
             if straggler is not None and straggler.record(timing.elapsed_us):
                 rep.straggler_buckets.append(i)
@@ -884,7 +876,6 @@ def dispatch_buckets(buckets: Sequence, dispatch: Callable, *,
             if observer is not None:
                 observer(timing)
             timings.append((timing, r))
-            prev_done = t_done
     finally:
         if tracer is not None:
             _trace.set_tracer(prev_tracer)

@@ -14,6 +14,8 @@ import torch
 
 from .spmm_segment import SHORT_ROW, tile_plan
 
+CHUNK_ELEMENTS = 1 << 28    # gathered float32 values a step: 1 GiB
+
 
 def spmm_segment_ref(x: torch.Tensor, src: torch.Tensor, seg: torch.Tensor,
                      weights: torch.Tensor, num_out: int) -> torch.Tensor:
@@ -22,13 +24,21 @@ def spmm_segment_ref(x: torch.Tensor, src: torch.Tensor, seg: torch.Tensor,
     ``x`` (N, D) features; ``src``/``seg`` (E,) int32 (``seg`` is the
     destination, in any order); ``weights`` (E,).  A ``src`` outside
     [0, N) is padding and contributes zero (callers pad with N); a ``seg``
-    outside [0, num_out) is dropped.  Rows with no edge are zero."""
+    outside [0, num_out) is dropped.  Rows with no edge are zero.  The
+    gathered rows are summed CHUNK_ELEMENTS values at a time, in edge
+    order (one chunk below that size): a graph of 62M edges at D = 128
+    would otherwise gather 32 GB at once."""
     n, d = x.shape
-    live = (src >= 0) & (src < n)
-    rows = x[src.clamp(0, n - 1).long()]
-    rows = torch.where(live[:, None], rows, 0.0) * weights[:, None]
-    slot = torch.where((seg >= 0) & (seg < num_out), seg, num_out).long()
-    out = x.new_zeros((num_out + 1, d)).index_add_(0, slot, rows)
+    out = x.new_zeros((num_out + 1, d))
+    step = max(1, CHUNK_ELEMENTS // max(d, 1))
+    for lo in range(0, src.shape[0], step):
+        s, g = src[lo:lo + step], seg[lo:lo + step]
+        live = (s >= 0) & (s < n)
+        rows = x[s.clamp(0, n - 1).long()]
+        rows = torch.where(live[:, None], rows, 0.0) * weights[lo:lo + step,
+                                                               None]
+        slot = torch.where((g >= 0) & (g < num_out), g, num_out).long()
+        out.index_add_(0, slot, rows)
     return out[:num_out]
 
 

@@ -362,6 +362,9 @@ class Calibrator:
         self.kernel_count = 0
         self.refits = 0
         self.rejected_refits = 0
+        self.last_rejection: Optional[str] = None
+        #   why the last refit's candidate was rejected (None: adopted, or
+        #   no refit validated yet)
         self.discarded = 0
         self.log: list[Observation] = []
 
@@ -414,14 +417,15 @@ class Calibrator:
         return (constants.base_us + constants.level_us * levels
                 + (plain + kf * kernel) / constants.bytes_per_us)
 
-    def _validates(self, candidate: CostConstants) -> bool:
+    def _rejection(self, candidate: CostConstants) -> Optional[str]:
         """The adoption test, on per-signature mean latencies: the
         candidate must fit better than the incumbent AND rank the observed
-        plans (tau > 0)."""
+        plans (tau > 0).  Returns why it fails, or None when it passes."""
         sigs = [(s[2], s[3], s[4], s[1] / s[0])
                 for s in self._sig_stats.values()]
         if len(sigs) < self.min_signatures:
-            return False
+            return (f"{len(sigs)} plan signatures observed, "
+                    f"{self.min_signatures} needed")
         meas = [m for _, _, _, m in sigs]
 
         def preds(c):
@@ -431,8 +435,13 @@ class Calibrator:
             return float(np.sqrt(np.mean(
                 (np.asarray(preds(c)) - np.asarray(meas)) ** 2)))
 
-        return (rmse(candidate) < rmse(self.constants)
-                and _kendall_tau(preds(candidate), meas) > 0.0)
+        new, old = rmse(candidate), rmse(self.constants)
+        tau = _kendall_tau(preds(candidate), meas)
+        if new < old and tau > 0.0:
+            return None
+        return (f"candidate rmse {new:.6g} us against the incumbent's "
+                f"{old:.6g} us (must be lower), Kendall tau {tau:.6g} "
+                f"(must be > 0)")
 
     def refit(self) -> CostConstants:
         """Solve + validate; below ``min_observations`` (or when the
@@ -466,7 +475,8 @@ class Calibrator:
         candidate = self.constants._replace(
             bytes_per_us=bpu, level_us=level, base_us=base,
             kernel_factor=kf)
-        if not self._validates(candidate):
+        self.last_rejection = self._rejection(candidate)
+        if self.last_rejection is not None:
             self.rejected_refits += 1
             return self.constants
         self.constants = candidate

@@ -1473,3 +1473,126 @@ def test_check_trace_on_a_card_trace(cuda, tmp_path):
     names = [r["name"] for r in records if r.get("type") == "span"]
     assert names.count("request") == 2 and names.count("compile") == 1
     assert {"parse", "plan", "dispatch", "transfer"} <= set(names)
+
+
+# ---------------------------------------------------------------------------
+# GNN inference: spmm_segment at GraphSAGE's width on an R-MAT graph, the
+# four archs' forward passes and the neighbour sampler, card against CPU
+# ---------------------------------------------------------------------------
+
+GNN_TOL = dict(rtol=1e-4, atol=1e-4)   # tests/test_torch_gnn.py's
+
+
+def test_spmm_segment_rmat_hub_at_d128(cuda):
+    """An R-MAT graph (2^15 vertices, 2^19 edges, a hub row of more than
+    2H edges at D = 128) against the plain version on the card, within
+    1e-5 of each row's sum of absolute terms; two calls bit-equal."""
+    from repro_torch.data.graphgen import rmat_edges
+    from repro_torch.kernels.spmm_segment.spmm_segment import tile_plan
+    v, e, d = 1 << 15, 1 << 19, 128
+    src, dst = rmat_edges(v, e, seed=3)
+    deg = np.bincount(dst, minlength=v)
+    assert deg.max() > 2 * tile_plan(e, d).hub_edges
+    rng = np.random.default_rng(3)
+    x = torch.from_numpy(rng.standard_normal((v, d), dtype=np.float32))
+    w = torch.from_numpy(rng.uniform(-1, 1, e).astype(np.float32))
+    args = [t.to(cuda) for t in (x, torch.from_numpy(src),
+                                 torch.from_numpy(dst), w)]
+    got = spmm_ops.spmm_segment(*args, v)
+    again = spmm_ops.spmm_segment(*args, v)
+    want = spmm_segment_ref(*args, v)
+    scale = spmm_segment_ref(args[0].abs(), args[1], args[2], args[3].abs(),
+                             v)
+    assert torch.equal(got.view(torch.int32), again.view(torch.int32))
+    assert bool(((got - want).abs() <= 1e-5 * scale + 1e-5).all())
+
+
+def _tree_to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_tree_to(v, device) for v in tree]
+    return tree.to(device)
+
+
+@pytest.mark.parametrize("arch,shape", [
+    ("gatedgcn", "full_graph_sm"), ("gatedgcn", "molecule"),
+    ("graphsage-reddit", "ogb_products"), ("egnn", "molecule"),
+    ("gat-cora", "full_graph_sm")])
+def test_gnn_forward_on_card_matches_cpu(cuda, arch, shape, monkeypatch):
+    """Each arch's ``gnn_forward`` at SMOKE width on its smoke shape: the
+    card's logits within GNN_TOL of the CPU run's (TF32 off); GraphSAGE
+    launches ``spmm_segment`` once a layer."""
+    from repro_torch.configs import registry
+    from repro_torch.data import graphgen
+    from repro_torch.models import gnn
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    cfg, _ = registry.get_config(arch, smoke=True)
+    dims = registry.SMOKE_GNN_SHAPES[shape]
+    if dims["kind"] == "molecule":
+        g = graphgen.make_molecule_batch(dims["batch"], dims["n_nodes"],
+                                         dims["n_edges"], dims["d_feat"], 1)
+    else:
+        g = graphgen.make_graph(dims["n_nodes"], dims["n_edges"],
+                                dims["d_feat"], dims["n_classes"], seed=3)
+    graph = {"src": torch.from_numpy(g.src), "dst": torch.from_numpy(g.dst),
+             "feats": torch.from_numpy(g.feats)}
+    if arch == "egnn":
+        graph["coords"] = torch.from_numpy(np.random.default_rng(9)
+                                           .standard_normal((g.num_vertices,
+                                                             3))
+                                           .astype(np.float32))
+    params = gnn.init_gnn(cfg, dims["d_feat"], g.num_classes,
+                          torch.Generator().manual_seed(0), "cpu")
+    want = gnn.gnn_forward(params, cfg, graph)
+    before = spmm_ops.LAUNCHES
+    got = gnn.gnn_forward(_tree_to(params, cuda), cfg,
+                          _tree_to(graph, cuda))
+    launches = spmm_ops.LAUNCHES - before
+    assert got.device.type == "cuda"
+    torch.testing.assert_close(got.cpu(), want, **GNN_TOL)
+    assert launches == (cfg.n_layers if cfg.kind == "graphsage" else 0)
+
+
+def test_sample_block_on_card_matches_cpu(cuda):
+    """``sample_block`` on the card with the CPU run's draws: the same
+    layers and the same gathered features, bit for bit; the card's own
+    draws give layers of the same sizes, adjacent or self-looped."""
+    from repro_torch.data import graphgen
+    from repro_torch.data.sampler import (gather_block_features,
+                                          sample_block)
+    g = graphgen.make_graph(5000, 60000, 16, seed=5)
+    csr_cpu = build_csr(torch.from_numpy(g.src), 5000)
+    csr = build_csr(torch.from_numpy(g.src).to(cuda), 5000)
+    seeds = torch.arange(0, 5000, 39, dtype=torch.int32)
+    dst = torch.from_numpy(g.dst)
+    feats = torch.from_numpy(g.feats)
+    gen = torch.Generator().manual_seed(2)
+    n, draws = seeds.shape[0], []
+    for f in (15, 10):
+        draws.append(torch.randint(0, 1 << 30, (n, f), generator=gen,
+                                   dtype=torch.int32))
+        n *= f
+    want = sample_block(None, csr_cpu, dst, seeds, (15, 10), draws=draws)
+    got = sample_block(None, csr, dst.to(cuda), seeds.to(cuda), (15, 10),
+                       draws=[d.to(cuda) for d in draws])
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b)
+    for a, b in zip(gather_block_features(feats.to(cuda), got),
+                    gather_block_features(feats, want)):
+        assert torch.equal(a.cpu(), b)
+    own = sample_block(torch.Generator(device=cuda).manual_seed(2), csr,
+                       dst.to(cuda), seeds.to(cuda), (15, 10))
+    assert [t.shape[0] for t in own] == [t.shape[0] for t in want]
+    pairs = set(zip(g.src.tolist(), g.dst.tolist()))
+    parents = own[0].cpu().repeat_interleave(15).tolist()
+    for p, c in zip(parents, own[1].cpu().tolist()):
+        assert (p, c) in pairs or p == c
+
+
+def test_check_chaos_on_card(cuda, capsys):
+    """Every fault class of the chaos smoke passes on the card."""
+    from repro_torch.obs import check_chaos
+    assert check_chaos.main(["--device", "cuda"]) == 0
+    out = capsys.readouterr().out
+    assert out.count("PASS chaos/") == len(check_chaos.CLASSES)

@@ -176,6 +176,38 @@ def test_calibrator_rejects_garbage_as_reference():
     assert pc.rejected_refits == rc.rejected_refits == 1
 
 
+def test_calibrator_names_why_it_rejected():
+    """``last_rejection`` says which adoption rule a rejected candidate
+    failed, and is None after an adopted refit; the rule is the
+    reference's (same refits and rejections)."""
+    cal = port_cal.Calibrator()
+    assert cal.last_rejection is None
+    for i in range(3):
+        cal.observe(("few", i), levels=4, plain_bytes=1e5, kernel_bytes=0.0,
+                    measured_us=100.0)
+    cal.observe(("few", 0), levels=4, plain_bytes=1e5, kernel_bytes=0.0,
+                measured_us=100.0)
+    cal.min_signatures = 4
+    cal.min_observations = 4
+    cal.refit()
+    assert cal.last_rejection == "3 plan signatures observed, 4 needed"
+    rng = np.random.default_rng(1)
+    garbage = port_cal.Calibrator()
+    for i in range(24):
+        plain = float(10.0 ** rng.uniform(4, 7))
+        garbage.observe(("g", i), levels=4, plain_bytes=plain,
+                        kernel_bytes=0.0,
+                        measured_us=20_000.0 / (1.0 + plain / 1e5))
+    garbage.refit()
+    assert garbage.rejected_refits == 1
+    assert "must be lower" in garbage.last_rejection
+    assert "Kendall tau" in garbage.last_rejection
+    good = port_cal.Calibrator()
+    feed(good, observations(0))
+    good.refit()
+    assert good.refits == 1 and good.last_rejection is None
+
+
 def test_reference_state_carries_across_as_json():
     """A reference calibrator's ``state_dict()`` and its constants'
     ``to_json()``, written as JSON, load in the port and go on refitting
