@@ -238,7 +238,38 @@ Phases (any failure raises and the script exits non-zero):
    the card print on a ``gnn graph:`` line, each row on a ``gnn:`` line
    (warm ms, device ms, the host's share, peak MiB above what was held,
    launches);
-8. print one ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}``
+8. training through the trainer's cells (``repro_torch.launch.steps
+   .build_cell``, the cells' own seeded graphs and batches, random
+   weights from a seed, TF32 off), one ``train:`` line a row (warm ms per
+   step, host median of 3 after the counted run; device ms and the
+   host's share; peak MiB above what was held; launches; seconds):
+   GraphSAGE-Reddit on ``ogb_products`` for three AdamW steps,
+   ``spmm_segment`` launched twice a layer a step (forward, and the
+   backward over the edges grouped by source), step 1's loss and every
+   gradient within 1e-4 of each leaf's largest of the same step with the
+   plain aggregation in both directions on the card, the backward kernel
+   at each layer's gradient within 1e-5 of each row's sum of absolute
+   terms of the float64 plain version over the transposed edges (``train
+   spmm_segment backward:``, with the kernel's ms, its ms with the
+   grouping sort, the plain version's, ``torch.sparse.mm`` of the
+   transpose and the bound), and a ``CheckpointManager`` checkpoint after
+   step 2 restored into zeroed trees whose step 3 is bit-equal to the
+   uninterrupted one in every leaf; its sampled path on ``minibatch_lg``
+   for one step, the layers equal to the CPU sampler fed the card
+   generator's draws and the loss and gradients within 1e-4 of the
+   port's CPU step; GAT-Cora and GatedGCN on ``full_graph_sm``, GatedGCN
+   and EGNN on ``molecule`` for one step each, the gradients within 1e-4
+   (GatedGCN on ``full_graph_sm``: 3e-4, ``TRAIN_ROW_TOL``) of the port's
+   CPU run in float32 and of that run in float64, the CPU float32 run's
+   own distance from float64 printed beside them; and DeepFM on
+   ``train_batch`` (B = 65,536, the 32,722,432-row table) for one dense
+   AdamW step (``late_gather`` forward, its scatter-add backward), its
+   loss and gradients within 1e-4 of the same step with the plain lookup
+   (touched table rows row by row, the rest zero in both), the
+   gradient's own time (``train late_gather gradient:``), then one lazy
+   step whose untouched rows and moments are bit-equal to before and
+   whose touched rows are within 1e-5 of its CPU run;
+9. print one ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}``
    line last.
 
 It imports nothing of JAX and nothing of the JAX package ``repro``.
@@ -250,6 +281,7 @@ import json
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 import types
 from pathlib import Path
@@ -298,8 +330,8 @@ from repro_torch.kernels.frontier_pull import (  # noqa: E402
     PULL_CASES, build_pull_layout, frontier_pull_layout_ref,
     frontier_pull_ref, pull_case, pull_lanes_case)
 from repro_torch.kernels.late_gather import ops as lg_ops  # noqa: E402
-from repro_torch.kernels.late_gather.ref import \
-    late_gather_columns_ref  # noqa: E402
+from repro_torch.kernels.late_gather.ref import (  # noqa: E402
+    late_gather_columns_ref, late_gather_ref)
 from repro_torch.kernels.spmm_segment import ops as spmm_ops  # noqa: E402
 from repro_torch.kernels.spmm_segment.ref import (  # noqa: E402
     SPMM_CASES, spmm_segment_lanes_ref, spmm_segment_ref, spmm_tile_case)
@@ -309,6 +341,10 @@ from repro_torch.data import graphgen  # noqa: E402
 from repro_torch.data.sampler import (DRAW_HIGH,  # noqa: E402
                                       gather_block_features, sample_block)
 from repro_torch.models import gnn, recsys  # noqa: E402
+from repro_torch.checkpoint import CheckpointManager  # noqa: E402
+from repro_torch.launch import steps as train_steps  # noqa: E402
+from repro_torch.optim.tree import leaves as tree_leaves  # noqa: E402
+from repro_torch.optim.tree import tree_map, value_and_grad  # noqa: E402
 from repro_torch.planner import (DEFAULT_CONSTANTS,  # noqa: E402
                                  ServingSession, admit_roots, calibrate,
                                  explain, explain_analyze, explain_json,
@@ -3623,6 +3659,480 @@ def gnn_phase(card: str, by_path: dict, flush) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 8: training through the cells a trainer builds (launch/steps.py)
+# ---------------------------------------------------------------------------
+
+TRAIN_SMOKE = False            # True: the smoke shapes (a CPU rehearsal)
+TRAIN_STEPS = 3                # AdamW steps of the ogb_products row
+# the gradients' tolerance, relative to each leaf's largest gradient
+# (tests/test_torch_gnn.py's: sums and matmuls in another order)
+TRAIN_TOL = 1e-4
+LAZY_TOL = 1e-5                # the lazy step's rows against its CPU run
+# (arch, shape) of the rows with no kernel, each against its CPU run in
+# float32 and in float64 (the witness of which side drifts)
+TRAIN_SMALL_ROWS = (("gat-cora", "full_graph_sm"),
+                    ("gatedgcn", "full_graph_sm"), ("gatedgcn", "molecule"),
+                    ("egnn", "molecule"))
+# a row's own gradient limit where float32 itself drifts past TRAIN_TOL
+# from the float64 run: GatedGCN's 16 residual layers on full_graph_sm,
+# where the card and the CPU float32 run both read 1.27-1.31e-4 of a
+# leaf's largest off float64 on an H100 (PERF.md section 7)
+TRAIN_ROW_TOL = {("gatedgcn", "full_graph_sm"): 3e-4}
+
+
+def train_cell(arch: str, shape: str, card: str):
+    """The cell, built on the card, and its build seconds (host generation
+    included)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    plan = train_steps.build_cell(arch, shape, smoke=TRAIN_SMOKE,
+                                  device=DEVICE)
+    torch.cuda.synchronize()
+    return plan, time.perf_counter() - t0
+
+
+def leaf_errors(got, want, label: str, other: str, rows=None,
+                tol: float = TRAIN_TOL) -> float:
+    """Every leaf of the gradient tree ``got`` within ``tol`` of
+    ``want``'s (relative to the leaf's largest, with the same rtol);
+    ``rows`` maps a leaf's index to the rows to compare (DeepFM's touched
+    table rows), the other rows required zero in both.  Returns the
+    largest error over the leaf's largest."""
+    worst = 0.0
+    for i, (g, w) in enumerate(zip(tree_leaves(got), tree_leaves(want))):
+        g, w = g.to(w.device), w
+        if rows is not None and i in rows:
+            keep = torch.zeros(w.shape[0], dtype=torch.bool, device=w.device)
+            keep[rows[i]] = True
+            require(not bool(g[~keep].any()) and not bool(w[~keep].any()),
+                    f"{label}: leaf {i} has a gradient on an untouched row")
+            g, w = g[keep], w[keep]
+        scale = float(w.abs().max()) if w.numel() else 0.0
+        err = float((g - w).abs().max()) if w.numel() else 0.0
+        require(bool(((g - w).abs() <= tol * w.abs()
+                      + tol * max(scale, 1e-30)).all()),
+                f"{label}: leaf {i} differs from {other} by {err} "
+                f"(largest {scale}), beyond {tol} of its largest")
+        worst = max(worst, err / scale if scale else err)
+    return worst
+
+
+def train_timing(label: str, fn, by_path: dict, want: dict) -> tuple:
+    """The counted run of ``fn`` (the path's steps) with its launches
+    held to ``want`` and nothing else, then the warm ms of one step (host
+    median of 3 after the counted run), its profile and the peak device
+    memory above what was held before it."""
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out, launches = counted_into(by_path["train"], fn)
+    torch.cuda.synchronize()
+    peak_mib = (torch.cuda.max_memory_allocated() - held) / 2 ** 20
+    require(launches == {**dict.fromkeys(KERNEL_OPS, 0), **want},
+            f"{label}: launches {launches}, want {want} and nothing else")
+    return out, {"launches": launches, "peak_mib": peak_mib}
+
+
+def step_profile(label: str, step) -> dict:
+    warm = warm_latency_ms(step)
+    prof = profile_call(label, step, warm)
+    return {"warm_ms": warm, "device_ms": prof["device_ms"],
+            "host_share": prof["idle_share"],
+            "device_launches": prof["device_launches"], "top": prof["top"]}
+
+
+class PlainSpmm(torch.autograd.Function):
+    """``spmm_segment`` with the plain version in both directions: the
+    forward over the destination-sorted edges, the backward over the same
+    edges read the other way (``spmm_segment_ref`` takes them in any
+    order, so no grouping by source is involved)."""
+
+    @staticmethod
+    def forward(ctx, x, src, seg, weights, offsets):
+        ctx.save_for_backward(src, seg, weights)
+        ctx.num_src = x.shape[0]
+        return spmm_segment_ref(x, src, seg, weights, offsets.shape[0] - 1)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        src, seg, weights = ctx.saved_tensors
+        return (spmm_segment_ref(grad_out.contiguous(), seg, src, weights,
+                                 ctx.num_src), None, None, None, None)
+
+
+def plain_spmm_sorted(x, src, seg, weights, offsets, mask=None, *,
+                      transposed=None):
+    return PlainSpmm.apply(x, src, seg, weights, offsets)
+
+
+def plain_lookup(table, ids):
+    """DeepFM's lookup with ``late_gather``'s plain version, whose own
+    autograd (``index_select``'s backward) carries the gradient."""
+    b, k = ids.shape
+    return late_gather_ref(table, ids.reshape(-1).to(torch.int32)) \
+        .reshape(b, k, table.shape[1])
+
+
+def with_patched(module, name: str, value, fn):
+    """``fn()`` with ``module.name`` set to ``value`` for its duration."""
+    old = getattr(module, name)
+    setattr(module, name, value)
+    try:
+        return fn()
+    finally:
+        setattr(module, name, old)
+
+
+def require_same_step(got, want, label: str) -> dict:
+    """Two runs of one step (params, state, metrics), bit-equal in every
+    leaf and in the loss."""
+    pairs = list(zip(tree_leaves(list(got[:2]) + [got[2]["loss"]]),
+                     tree_leaves(list(want[:2]) + [want[2]["loss"]])))
+    unequal = [i for i, (a, b) in enumerate(pairs) if not torch.equal(a, b)]
+    require(not unequal, f"{label}: leaves {unequal} differ from the "
+            f"uninterrupted step, by up to "
+            f"{max(max_abs_err(*pairs[i]) for i in unequal) if unequal else 0}")
+    return {"bit_equal": True, "leaves": len(pairs)}
+
+
+def train_sage_full_row(card: str, by_path: dict, flush) -> tuple:
+    """GraphSAGE-Reddit on ogb_products: TRAIN_STEPS AdamW steps through
+    the cell; step 1's loss and gradients against the same step with the
+    plain aggregation on the card; the backward kernel at each layer's
+    gradient against the plain version in float64 over the transposed
+    edges, timed; a checkpoint after step 2 restored into zeroed trees
+    and step 3 run again."""
+    arch, shape = "graphsage-reddit", "ogb_products"
+    label = f"train {arch} {shape}"
+    plan, build_s = train_cell(arch, shape, card)
+    params, state, batch = plan.args
+    n = batch["feats"].shape[0]
+
+    def steps():
+        p, s, out = params, state, []
+        for _ in range(TRAIN_STEPS):
+            p, s, m = plan.fn(p, s, batch)
+            out.append((p, s, m))
+        return out
+    layers = len(params["layers"])
+    # forward and backward, each layer, each step
+    hist, row = train_timing(label, steps, by_path,
+                             {"spmm_segment": 2 * layers * TRAIN_STEPS})
+    losses = [float(m["loss"]) for _, _, m in hist]
+    require(all(np.isfinite(losses)), f"{label}: losses {losses}")
+    row.update(step_profile(label, lambda: plan.fn(params, state, batch)))
+
+    # step 1's gradients through the kernels, each layer's gradient
+    # captured where it enters spmm_segment's backward
+    grads_out = []
+
+    def recording(x, src, seg, weights, offsets, mask=None, *,
+                  transposed=None):
+        out = spmm_ops.spmm_segment_sorted(x, src, seg, weights, offsets,
+                                           mask, transposed=transposed)
+        out.register_hook(lambda g: grads_out.append(g.detach()))
+        return out
+    loss, grads = with_patched(gnn, "spmm_segment_sorted", recording,
+                               lambda: value_and_grad(plan.loss, params,
+                                                      batch))
+    want_loss, want = with_patched(
+        gnn, "spmm_segment_sorted", plain_spmm_sorted,
+        lambda: value_and_grad(plan.loss, params, batch))
+    require(abs(float(loss) - float(want_loss))
+            <= TRAIN_TOL * abs(float(want_loss)),
+            f"{label}: loss {float(loss)} against the plain aggregation's "
+            f"{float(want_loss)}")
+    require(float(loss) == losses[0],
+            f"{label}: step 1's loss {losses[0]} is not value_and_grad's "
+            f"{float(loss)}")
+    row["grad_max_rel_err"] = leaf_errors(
+        grads, want, label, "the plain-aggregation step on the card")
+    row["loss_plain"] = float(want_loss)
+    del grads, want
+    # the backward kernel at each layer's gradient: the sum over the
+    # edges grouped by source (spmm_case groups them by the forward's
+    # source, the transposed edges), against the float64 plain version
+    require(len(grads_out) == layers, f"{label}: {len(grads_out)} "
+            f"gradients captured for {layers} layers")
+    src, dst = batch["src"], batch["dst"]
+    ones = torch.ones(src.shape, dtype=torch.float32, device=src.device)
+    backward = {}
+    for li, g in enumerate(reversed(grads_out)):
+        case, _ = spmm_case(g.contiguous(), dst, src, ones, n, "f64", flush)
+        case["sort_ms"] = time_ms(lambda: spmm_ops.transpose_grouping(
+            src, dst, ones, n), flush)
+        case.update({
+            "bound_uses": "the compulsory bytes: offsets, src and w once, "
+                          "each distinct gradient row once, grad_x once",
+            "tol": "1e-5 of each row's sum of absolute terms, against "
+                   "the plain version in float64 over the transposed "
+                   "edges"})
+        backward[f"layer{li}"] = case
+        print("train spmm_segment backward: " + json.dumps(
+            {"layer": li, **case, "card": card}), flush=True)
+    del grads_out
+
+    # a checkpoint after step 2, restored into zeroed trees, then step 3
+    with tempfile.TemporaryDirectory() as d:
+        mgr = CheckpointManager(d, keep=2, async_save=True)
+        t0 = time.perf_counter()
+        mgr.save(2, {"params": hist[1][0], "opt_state": hist[1][1]})
+        mgr.wait()
+        save_s = time.perf_counter() - t0
+        like = tree_map(torch.zeros_like, {"params": params,
+                                           "opt_state": state})
+        step, restored = mgr.restore_latest(like)
+    require(step == 2, f"{label}: restored step {step}")
+    again = plan.fn(restored["params"], restored["opt_state"], batch)
+    row["checkpoint"] = {"save_s": save_s, **require_same_step(
+        again, hist[2], f"{label} restored at step 2")}
+    return {"arch": arch, "shape": shape, "V": n, "E": int(src.shape[0]),
+            "steps": TRAIN_STEPS, "losses": losses, "build_s": build_s,
+            **row, "card": card}, backward
+
+
+def train_sage_minibatch_row(card: str, by_path: dict) -> dict:
+    """GraphSAGE-Reddit on minibatch_lg: one sampled step, its draws from
+    the card generator the cell seeds; the sampled layers equal to the
+    CPU sampler's fed the same draws, the loss and gradients to the port's
+    CPU step on that block."""
+    arch, shape = "graphsage-reddit", "minibatch_lg"
+    label = f"train {arch} {shape}"
+    plan, build_s = train_cell(arch, shape, card)
+    params, state, graph, seeds, seed_scalar = plan.args
+    fanouts = tuple(registry.shapes_for("gnn", TRAIN_SMOKE)[shape]["fanout"])
+    (_, _, m), row = train_timing(label, lambda: plan.fn(*plan.args),
+                                  by_path, {})
+    row.update(step_profile(label, lambda: plan.fn(*plan.args)))
+    # the step's draws, regenerated from its seed, and the layers
+    gen = torch.Generator(device=DEVICE).manual_seed(int(seed_scalar))
+    draws, n = [], seeds.shape[0]
+    for f in fanouts:
+        draws.append(torch.randint(0, DRAW_HIGH, (n, f), generator=gen,
+                                   device=DEVICE, dtype=torch.int32))
+        n *= f
+    csr = CSRIndex(graph["indptr"], graph["perm"])
+    own = sample_block(
+        torch.Generator(device=DEVICE).manual_seed(int(seed_scalar)), csr,
+        graph["dst"], seeds, fanouts)
+    layers = sample_block(None, csr, graph["dst"], seeds, fanouts,
+                          draws=draws)
+    require(all(torch.equal(a, b) for a, b in zip(own, layers)),
+            f"{label}: the regenerated draws give other layers")
+    t0 = time.perf_counter()
+    graph_cpu = {k: v.cpu() for k, v in graph.items()}
+    draws_cpu = [d.cpu() for d in draws]
+    layers_cpu = sample_block(None, CSRIndex(graph_cpu["indptr"],
+                                             graph_cpu["perm"]),
+                              graph_cpu["dst"], seeds.cpu(), fanouts,
+                              draws=draws_cpu)
+    require(all(torch.equal(a.cpu(), b) for a, b in zip(layers, layers_cpu)),
+            f"{label}: the card's layers differ from the CPU sampler's")
+    loss, grads = value_and_grad(plan.loss, params, graph, seeds,
+                                 seed_scalar)
+    want_loss, want = value_and_grad(plan.loss, tree_to(params, "cpu"),
+                                     graph_cpu, seeds.cpu(),
+                                     seed_scalar.cpu(), draws=draws_cpu)
+    cpu_s = time.perf_counter() - t0
+    require(abs(float(loss) - float(want_loss))
+            <= TRAIN_TOL * abs(float(want_loss)),
+            f"{label}: loss {float(loss)} against the CPU's "
+            f"{float(want_loss)}")
+    require(float(loss) == float(m["loss"]),
+            f"{label}: the step's loss {float(m['loss'])} is not "
+            f"value_and_grad's {float(loss)}")
+    err = leaf_errors(grads, want, label, "the port's CPU step")
+    return {"arch": arch, "shape": shape, "seeds": int(seeds.shape[0]),
+            "fanout": list(fanouts), "sampled": [int(t.shape[0])
+                                                 for t in layers],
+            "E": int(graph["dst"].shape[0]), "loss": float(m["loss"]),
+            "loss_cpu": float(want_loss), "grad_max_rel_err": err,
+            "build_s": build_s, "cpu_s": cpu_s, **row, "card": card}
+
+
+def float64_witness(plan, cpu_args) -> tuple:
+    """The loss and gradients of ``plan``'s cell on the CPU with every
+    floating tensor of its weights and batch in float64."""
+    wide = tree_map(lambda t: t.double() if t.is_floating_point() else t,
+                    cpu_args)
+    return value_and_grad(plan.loss, wide[0], *wide[2:])
+
+
+def train_small_row(arch: str, shape: str, card: str, by_path: dict) -> dict:
+    """One step of a cell that runs no kernel, its loss and gradients
+    against the port's CPU run of the same cell and weights, and both
+    against that run in float64 (the control: the CPU float32 run's own
+    distance from it); the card's gradients taken twice, their distance
+    printed."""
+    label = f"train {arch} {shape}"
+    tol = TRAIN_ROW_TOL.get((arch, shape), TRAIN_TOL)
+    plan, build_s = train_cell(arch, shape, card)
+    (_, _, m), row = train_timing(label, lambda: plan.fn(*plan.args),
+                                  by_path, {})
+    row.update(step_profile(label, lambda: plan.fn(*plan.args)))
+    loss, grads = value_and_grad(plan.loss, plan.args[0], *plan.args[2:])
+    _, again = value_and_grad(plan.loss, plan.args[0], *plan.args[2:])
+    repeat = leaf_errors(again, grads, label, "a second card run", tol=tol)
+    cpu_args = tree_to(list(plan.args), "cpu")
+    want_loss, want = value_and_grad(plan.loss, cpu_args[0], *cpu_args[2:])
+    wit_loss, wit = float64_witness(plan, cpu_args)
+    require(abs(float(loss) - float(want_loss))
+            <= TRAIN_TOL * abs(float(want_loss)),
+            f"{label}: loss {float(loss)} against the CPU's "
+            f"{float(want_loss)}")
+    err = leaf_errors(grads, want, label, "the port's CPU run", tol=tol)
+    err_f64 = leaf_errors(grads, wit, label, "the CPU run in float64",
+                          tol=tol)
+    control = leaf_errors(want, wit, f"{label} (CPU float32)",
+                          "the CPU run in float64", tol=tol)
+    return {"arch": arch, "shape": shape, "loss": float(m["loss"]),
+            "loss_cpu": float(want_loss), "loss_f64": float(wit_loss),
+            "grad_tol": tol, "grad_max_rel_err": err,
+            "grad_max_rel_err_f64": err_f64, "cpu_max_rel_err_f64": control,
+            "grad_repeat_rel_err": repeat,
+            "build_s": build_s, **row, "card": card}
+
+
+def train_deepfm_row(card: str, by_path: dict, flush) -> tuple:
+    """DeepFM on train_batch at the full table: one dense AdamW step
+    (``late_gather``'s kernel forward, its scatter-add backward, moments
+    over the whole table), its loss and gradients against the same step
+    with the plain lookup on the card (touched table rows row by row);
+    then one lazy step, its untouched rows and moments bit-equal to
+    before and its touched rows within LAZY_TOL of its CPU run."""
+    arch, shape = "deepfm", "train_batch"
+    label = f"train {arch} {shape}"
+    plan, build_s = train_cell(arch, shape, card)
+    params, state, batch = plan.args
+    cfg, _ = registry.get_config(arch, smoke=TRAIN_SMOKE)
+    (_, _, m), row = train_timing(label, lambda: plan.fn(*plan.args),
+                                  by_path, {"late_gather": 1})
+    row.update(step_profile(label, lambda: plan.fn(*plan.args)))
+    loss, grads = value_and_grad(plan.loss, params, batch)
+    want_loss, want = with_patched(
+        recsys, "fixed_hot_lookup", plain_lookup,
+        lambda: value_and_grad(plan.loss, params, batch))
+    pos = recsys.featurize(cfg, batch["dense"], batch["sparse"],
+                           batch["offsets"]).reshape(-1)
+    touched = torch.unique(pos).long()
+    order = tree_leaves(params)
+    rows = {i: touched for i, leaf in enumerate(order)
+            if leaf is params["table"] or leaf is params["first_order"]}
+    require(abs(float(loss) - float(want_loss))
+            <= TRAIN_TOL * abs(float(want_loss)),
+            f"{label}: loss {float(loss)} against the plain lookup's "
+            f"{float(want_loss)}")
+    row["grad_max_rel_err"] = leaf_errors(grads, want, label,
+                                          "the plain-lookup step", rows)
+    del grads, want
+    # the gradient's own cost: late_gather's backward at this batch
+    table = params["table"].detach().requires_grad_(True)
+    out = lg_ops.late_gather(table, pos)
+    cot = torch.randn(out.shape, device=out.device,
+                      generator=torch.Generator(device=DEVICE).manual_seed(0))
+    r, w = table.shape
+    grad_bytes = r * w * 4 + pos.shape[0] * (w * 4 + 4)
+    gradient = {
+        "positions": int(pos.shape[0]), "touched_rows": int(touched.numel()),
+        "ms": time_ms(lambda: torch.autograd.grad(out, table, cot,
+                                                  retain_graph=True), flush),
+        "forward_ms": time_ms(lambda: lg_ops.late_gather(
+            params["table"], pos), flush),
+        "bound_ms": bound_ms(grad_bytes), "bound_by": "bytes",
+        "bound_uses": "the dense (R, W) gradient written once, the (P, W) "
+                      "output gradient and the positions read once",
+        "what": "index_add_ of the output gradient into a zeroed (R, W) "
+                "table gradient (atomics), the zeroing included"}
+    del out, cot, table
+    print("train late_gather gradient: " + json.dumps({**gradient,
+                                                       "card": card}),
+          flush=True)
+    # the lazy positional step from the same parameters and state
+    lazy = recsys.make_deepfm_train_step_lazy(cfg,
+                                              train_steps.make_optimizer())
+    (lp, ls, lm), lazy_row = train_timing(
+        f"{label} lazy", lambda: lazy(params, state, batch), by_path,
+        {"late_gather": 1})
+    lazy_row.update(step_profile(f"{label} lazy",
+                                 lambda: lazy(params, state, batch)))
+    keep = torch.ones(r, dtype=torch.bool, device=touched.device)
+    keep[touched] = False
+    for name in ("table", "first_order"):
+        for got, before in ((lp[name], params[name]),
+                            (ls["mu"][name], state["mu"][name]),
+                            (ls["nu"][name], state["nu"][name])):
+            require(torch.equal(got[keep], before[keep]),
+                    f"{label} lazy: an untouched row of {name} changed")
+    t0 = time.perf_counter()
+    cpu = lazy(tree_to(params, "cpu"), tree_to(state, "cpu"),
+               tree_to(batch, "cpu"))
+    lazy_cpu_s = time.perf_counter() - t0
+    touched_cpu = touched.cpu()
+    lazy_err = 0.0
+    for name in ("table", "first_order"):
+        for got, want_t in ((lp[name], cpu[0][name]),
+                            (ls["mu"][name], cpu[1]["mu"][name]),
+                            (ls["nu"][name], cpu[1]["nu"][name])):
+            g = got[touched].cpu()
+            w_ = want_t[touched_cpu]
+            require(bool(torch.isclose(g, w_, rtol=LAZY_TOL,
+                                       atol=LAZY_TOL).all()),
+                    f"{label} lazy: touched rows of {name} differ from the "
+                    f"CPU run beyond {LAZY_TOL}")
+            lazy_err = max(lazy_err, max_abs_err(g, w_))
+    require(abs(float(lm["loss"]) - float(cpu[2]["loss"]))
+            <= LAZY_TOL * abs(float(cpu[2]["loss"])),
+            f"{label} lazy: loss differs from the CPU run")
+    lazy_row.update({"loss": float(lm["loss"]),
+                     "loss_cpu": float(cpu[2]["loss"]),
+                     "max_abs_err_touched": lazy_err,
+                     "cpu_s": lazy_cpu_s})
+    return {"arch": arch, "shape": shape, "B": int(batch["dense"].shape[0]),
+            "rows": r, "touched_rows": int(touched.numel()),
+            "loss": float(m["loss"]), "loss_plain": float(want_loss),
+            "build_s": build_s, **row, "lazy": lazy_row,
+            "card": card}, gradient
+
+
+def train_phase(card: str, by_path: dict, flush) -> tuple:
+    """Phase 8: the training rows (one ``train:`` line each); returns
+    ``spmm_segment``'s backward numbers at ogb_products by layer and
+    ``late_gather``'s gradient's at DeepFM's train batch."""
+    t_phase = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    by_path["train"] = dict.fromkeys(KERNEL_OPS, 0)
+    seconds = {}
+
+    def run(name, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        row = out[0] if isinstance(out, tuple) else out
+        seconds[name] = row["s"] = time.perf_counter() - t0
+        print("train: " + json.dumps(row), flush=True)
+        torch.cuda.empty_cache()
+        return out
+
+    _, backward = run("graphsage-reddit ogb_products",
+                      lambda: train_sage_full_row(card, by_path, flush))
+    run("graphsage-reddit minibatch_lg",
+        lambda: train_sage_minibatch_row(card, by_path))
+    for arch, shape in TRAIN_SMALL_ROWS:
+        run(f"{arch} {shape}",
+            lambda arch=arch, shape=shape: train_small_row(arch, shape,
+                                                           card, by_path))
+    _, gradient = run("deepfm train_batch",
+                      lambda: train_deepfm_row(card, by_path, flush))
+    require(by_path["train"]["spmm_segment"] > 0
+            and by_path["train"]["late_gather"] > 0,
+            f"the training path launched {by_path['train']}")
+    print(f"train phase: {time.perf_counter() - t_phase:.3f} s (host clock), "
+          f"rows {json.dumps(seconds)}, launches "
+          f"{json.dumps(by_path['train'])}", flush=True)
+    return backward, gradient
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> None:
     if not torch.cuda.is_available():
@@ -4051,6 +4561,9 @@ def main() -> None:
     del ds, ds_cpu
     torch.cuda.empty_cache()
     sp["ogb_products"] = gnn_phase(card, by_path, flush)
+    # training last: the same graphs again, at the cells' own seeds
+    sp["ogb_products_backward"], lg["train_gradient"] = train_phase(
+        card, by_path, flush)
     for name, entry in kernels.items():
         entry["launches"] = sum(n[name] for n in by_path.values())
         entry["launches_by_path"] = {p: n[name] for p, n in by_path.items()}

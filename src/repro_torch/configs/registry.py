@@ -1,14 +1,17 @@
-"""Architecture and shape registry of the models the port serves: the four
-GNN architectures and DeepFM, with their published input shapes and the
-reduced shapes of the CPU tests (the reference's
-``src/repro/configs/registry.py``, its own copy).  The language models and
-the paper's BFS arch are left out: the port has no LM yet, and the BFS
-deployment is driven through ``repro_torch.core.engine`` directly.
+"""Architecture and shape registry of the models the port serves and
+trains: the four GNN architectures and DeepFM, with their published input
+shapes and the reduced shapes of the CPU tests (the reference's
+``src/repro/configs/registry.py``, its own copy).  ``cells`` enumerates
+their (arch x shape) cells, which ``launch.steps.build_cell`` builds.  The
+language models and the paper's BFS arch are left out: the port has no LM
+yet, and the BFS deployment is driven through ``repro_torch.core.engine``
+directly.
 """
 from __future__ import annotations
 
+import dataclasses
 import importlib
-from typing import Any
+from typing import Any, Iterator
 
 ARCHS: dict[str, tuple[str, str]] = {
     # arch id                  family    config module
@@ -65,3 +68,30 @@ def get_config(arch: str, smoke: bool = False):
     family, mod_name = ARCHS[arch]
     mod = importlib.import_module(mod_name)
     return (mod.SMOKE if smoke else mod.CONFIG), family
+
+
+def shapes_for(family: str, smoke: bool = False) -> dict[str, dict]:
+    """The shapes of a family ("gnn" or "recsys"), published or smoke."""
+    if family == "gnn":
+        return SMOKE_GNN_SHAPES if smoke else GNN_SHAPES
+    if family == "recsys":
+        return SMOKE_RECSYS_SHAPES if smoke else RECSYS_SHAPES
+    raise ValueError(f"the port has no {family!r} shapes yet (the LM and "
+                     "BFS entries come with ROADMAP items 9-10)")
+
+
+@dataclasses.dataclass(frozen=True)
+class Cell:
+    arch: str
+    shape: str
+    family: str
+    dims: dict
+
+
+def cells(smoke: bool = False) -> Iterator[Cell]:
+    """Every (arch x shape) cell of the GNN and recsys families, in the
+    reference's order."""
+    for arch, (family, _) in ARCHS.items():
+        for shape_id, dims in shapes_for(family, smoke).items():
+            yield Cell(arch=arch, shape=shape_id, family=family,
+                       dims=dict(dims))

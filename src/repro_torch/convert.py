@@ -6,8 +6,11 @@ ds.table.columns.items()}``) and rebuilds its own ``Dataset`` on a device,
 keeping each column's dtype.  DeepFM's parameters cross the same way: the
 reference's ``init_deepfm`` pytree as numpy arrays (for example
 ``jax.tree_util.tree_map(np.asarray, params)``) become the port's
-parameter dictionary, and the GNN archs' ``init_gnn`` trees become the
-port's ``models.gnn`` trees.
+parameter dictionary, the GNN archs' ``init_gnn`` trees become the
+port's ``models.gnn`` trees, and an optimizer's state (``AdamW``'s
+``{"mu", "nu", "step"}`` or ``sgd_momentum``'s ``{"vel", "step"}``)
+crosses as the parameters do, through ``tree_from_numpy``.
+``tree_to_numpy`` hands the port's trees back.
 """
 from __future__ import annotations
 
@@ -20,7 +23,7 @@ from .core.engine import Dataset, resolve_device
 from .core.table import ColumnTable
 
 __all__ = ["dataset_from_numpy", "deepfm_params_from_numpy",
-           "gnn_params_from_numpy"]
+           "gnn_params_from_numpy", "tree_from_numpy", "tree_to_numpy"]
 
 
 def dataset_from_numpy(columns: Mapping[str, np.ndarray], num_vertices: int,
@@ -59,12 +62,10 @@ def deepfm_params_from_numpy(params: Mapping[str, Any], device=None
     return out
 
 
-def gnn_params_from_numpy(params: Any, device=None) -> Any:
-    """The port's GNN parameters (``models.gnn``) from the reference's
-    ``init_gnn`` tree as numpy arrays (for example
-    ``jax.tree_util.tree_map(np.asarray, params)``): the same nesting of
-    dicts and lists, each array a tensor of its dtype on ``device``
-    (``None``: the card, raising where CUDA is unavailable)."""
+def tree_from_numpy(tree: Any, device=None) -> Any:
+    """A tree of numpy arrays (dicts and lists) as tensors of the same
+    nesting and dtypes on ``device`` (``None``: the card, raising where
+    CUDA is unavailable)."""
     device = resolve_device(device)
 
     def walk(node):
@@ -74,4 +75,36 @@ def gnn_params_from_numpy(params: Any, device=None) -> Any:
             return [walk(v) for v in node]
         return _tensor(node, device)
 
-    return walk(params)
+    return walk(tree)
+
+
+def gnn_params_from_numpy(params: Any, device=None) -> Any:
+    """The port's GNN parameters (``models.gnn``) from the reference's
+    ``init_gnn`` tree as numpy arrays (for example
+    ``jax.tree_util.tree_map(np.asarray, params)``): the same nesting of
+    dicts and lists, each array a tensor of its dtype on ``device``
+    (``None``: the card, raising where CUDA is unavailable)."""
+    return tree_from_numpy(params, device)
+
+
+def tree_to_numpy(tree: Any) -> Any:
+    """A tree of tensors (parameters, optimizer state, metrics) as numpy
+    arrays of the same nesting and dtypes, on the host; a bfloat16 tensor
+    becomes the ``ml_dtypes`` bfloat16 array the reference uses."""
+    def leaf(t):
+        if not isinstance(t, torch.Tensor):
+            return np.asarray(t)
+        t = t.detach().cpu()
+        if t.dtype == torch.bfloat16:
+            import ml_dtypes
+            return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
+        return t.numpy()
+
+    def walk(node):
+        if isinstance(node, Mapping):
+            return {k: walk(v) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return [walk(v) for v in node]
+        return leaf(node)
+
+    return walk(tree)

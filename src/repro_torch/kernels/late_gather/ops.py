@@ -3,6 +3,12 @@
 On CPU tensors they run the plain version (``ref.py``); on CUDA tensors
 they launch the hand-written kernel or raise.  ``LAUNCHES`` counts kernel
 launches, so a run can show that its path went through the kernel.
+
+Where autograd needs a table's gradient, the gather runs through
+:class:`LateGather`: the same forward, and a backward that adds each
+output row's gradient into the table row it came from (``index_add_``,
+as the reference's gradient of ``jnp.take`` is XLA's scatter-add).  On
+the card those adds are atomics, so the sums are not bit-reproducible.
 """
 from __future__ import annotations
 
@@ -16,16 +22,14 @@ from .ref import late_gather_columns_ref, require_rows
 LAUNCHES = 0
 
 
-def late_gather_columns(tables: Sequence[torch.Tensor],
-                        positions: torch.Tensor) -> list[torch.Tensor]:
-    """(R, W_c) tables of one R, (P,) int32 positions -> the (P, W_c) rows
-    of each table in its own dtype: row p for 0 <= p < R, row p + R for
-    -R <= p < 0 (counted from the end once), a zero row for p >= R (the
-    padding sentinel ``num_rows``) or p < -R.  An empty table (R = 0)
-    raises IndexError unless P = 0, before any launch.  On the card one
-    launch per MAX_COLUMNS columns, none when the outputs are empty."""
+def _needs_grad(tables: Sequence[torch.Tensor]) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tables)
+
+
+def _gather(tables: list, positions: torch.Tensor) -> list[torch.Tensor]:
+    """The plain version on CPU tensors, else one launch per MAX_COLUMNS
+    columns."""
     global LAUNCHES
-    tables = list(tables)
     if tables:
         require_rows(tables[0].shape[0], positions.shape[0])
     if positions.device.type == "cpu" and \
@@ -38,6 +42,46 @@ def late_gather_columns(tables: Sequence[torch.Tensor],
             LAUNCHES += 1
         outs += group
     return outs
+
+
+class LateGather(torch.autograd.Function):
+    """One table's gather with its gradient in the table: the gradient of
+    output row i goes to row p_i (p_i + R for p_i in [-R, 0)); a position
+    outside [-R, R), whose output row is zero, adds nothing."""
+
+    @staticmethod
+    def forward(ctx, table, positions):
+        ctx.save_for_backward(positions)
+        ctx.rows = table.shape[0]
+        return _gather([table], positions)[0]
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, grad_out):
+        (positions,) = ctx.saved_tensors
+        r = ctx.rows
+        p = positions.long()
+        p = torch.where(p < 0, p + r, p)
+        slot = torch.where((p >= 0) & (p < r), p, r)   # row r: the dropped
+        grad = grad_out.new_zeros((r + 1,) + tuple(grad_out.shape[1:]))
+        return grad.index_add_(0, slot, grad_out)[:r], None
+
+
+def late_gather_columns(tables: Sequence[torch.Tensor],
+                        positions: torch.Tensor) -> list[torch.Tensor]:
+    """(R, W_c) tables of one R, (P,) int32 positions -> the (P, W_c) rows
+    of each table in its own dtype: row p for 0 <= p < R, row p + R for
+    -R <= p < 0 (counted from the end once), a zero row for p >= R (the
+    padding sentinel ``num_rows``) or p < -R.  An empty table (R = 0)
+    raises IndexError unless P = 0, before any launch.  On the card one
+    launch per MAX_COLUMNS columns, none when the outputs are empty.
+    Where a table's gradient is required, each table goes through
+    :class:`LateGather` on its own (one launch a table)."""
+    tables = list(tables)
+    if _needs_grad(tables):
+        require_rows(tables[0].shape[0], positions.shape[0])
+        return [LateGather.apply(t, positions) for t in tables]
+    return _gather(tables, positions)
 
 
 def late_gather(table: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:

@@ -16,6 +16,13 @@ once per request, not once per level).  It also takes a lane axis: (L, N,
 D) ``x`` and an (L, N) source mask, the lanes of a batch of roots over
 the same edges, in one kernel call.  ``LAUNCHES`` counts kernel calls,
 one for all lanes.
+
+The one-lane (N, D) call is differentiable in ``x``: where a gradient is
+required it runs through :class:`SpmmSegment`, whose backward is the
+same sum over the transposed edges (:func:`transpose_grouping`), so the
+hand-written kernel on the card and the plain version on the CPU, in
+both directions.  No gradient flows to ``weights``, and none through
+the lane axis or a mask: those raise where one is required.
 """
 from __future__ import annotations
 
@@ -46,20 +53,34 @@ def segments(dst: torch.Tensor, num_out: int) -> Segments:
                     torch.searchsorted(seg, bounds, out_int32=True))
 
 
-def spmm_segment_sorted(x: torch.Tensor, src: torch.Tensor, seg: torch.Tensor,
-                        weights: torch.Tensor, offsets: torch.Tensor,
-                        mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """:func:`spmm_segment` on edges in :func:`segments` order: ``src``,
-    ``seg`` and ``weights`` are permuted by ``order``.  The kernel reads
-    ``offsets`` and no ``seg``; the plain version reads ``seg``.  With
-    (L, N, D) ``x`` every lane sums the same edges over its own ``x``, and
-    an optional (L, N) bool ``mask`` counts an edge whose source is masked
-    off in its lane as padding: (L, num_out, D) in one kernel call, no
-    launch for L = 0.  A mask goes with the lane axis only."""
+class Grouping(NamedTuple):
+    """The arguments of :func:`spmm_segment_sorted` after ``x``: edges in
+    :func:`segments` order of their ``seg``."""
+
+    src: torch.Tensor
+    seg: torch.Tensor
+    weights: torch.Tensor
+    offsets: torch.Tensor
+
+
+def transpose_grouping(src: torch.Tensor, seg: torch.Tensor,
+                       weights: torch.Tensor, num_src: int) -> Grouping:
+    """The same edges grouped by source, for the transposed sum
+    ``grad_x[u] = sum_{e: src[e]=u} w[e] * grad_out[seg[e]]`` over N =
+    ``num_src`` rows: one stable sort of ``src``.  Padding carries over
+    with no special case: a ``src`` outside [0, N) falls outside every
+    row and is dropped, and a ``seg`` outside [0, num_out), dropped by the
+    forward sum, becomes a padded source of the transposed one."""
+    s = segments(src, num_src)
+    return Grouping(seg.index_select(0, s.order), s.seg,
+                    weights.index_select(0, s.order), s.offsets)
+
+
+def _sum_sorted(x: torch.Tensor, src: torch.Tensor, seg: torch.Tensor,
+                weights: torch.Tensor, offsets: torch.Tensor,
+                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The plain version on CPU tensors, else one kernel call."""
     global LAUNCHES
-    if mask is not None and x.dim() != 3:
-        raise ValueError(f"a source mask needs (L, N, D) x, got "
-                         f"{tuple(x.shape)}")
     if x.device.type == "cpu" and src.device.type == "cpu":
         num_out = offsets.shape[0] - 1
         if x.dim() == 3:
@@ -69,6 +90,61 @@ def spmm_segment_sorted(x: torch.Tensor, src: torch.Tensor, seg: torch.Tensor,
     if out.numel():
         LAUNCHES += 1
     return out
+
+
+class SpmmSegment(torch.autograd.Function):
+    """The one-lane sum with its gradient in ``x``: the same sum over the
+    edges grouped by source, ``transposed`` when the caller grouped them
+    (once for many calls over the same edges), else grouped here."""
+
+    @staticmethod
+    def forward(ctx, x, src, seg, weights, offsets, transposed):
+        ctx.num_src = x.shape[0]
+        ctx.transposed = transposed
+        if transposed is None:
+            ctx.save_for_backward(src, seg, weights)
+        return _sum_sorted(x, src, seg, weights, offsets)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, grad_out):
+        t = ctx.transposed
+        if t is None:
+            t = transpose_grouping(*ctx.saved_tensors, ctx.num_src)
+        return (_sum_sorted(grad_out.contiguous(), *t),
+                None, None, None, None, None)
+
+
+def spmm_segment_sorted(x: torch.Tensor, src: torch.Tensor, seg: torch.Tensor,
+                        weights: torch.Tensor, offsets: torch.Tensor,
+                        mask: Optional[torch.Tensor] = None, *,
+                        transposed: Optional[Grouping] = None
+                        ) -> torch.Tensor:
+    """:func:`spmm_segment` on edges in :func:`segments` order: ``src``,
+    ``seg`` and ``weights`` are permuted by ``order``.  The kernel reads
+    ``offsets`` and no ``seg``; the plain version reads ``seg``.  With
+    (L, N, D) ``x`` every lane sums the same edges over its own ``x``, and
+    an optional (L, N) bool ``mask`` counts an edge whose source is masked
+    off in its lane as padding: (L, num_out, D) in one kernel call, no
+    launch for L = 0.  A mask goes with the lane axis only.
+
+    Where autograd needs the gradient of (N, D) ``x``, the call goes
+    through :class:`SpmmSegment`; ``transposed``, the
+    :func:`transpose_grouping` of these edges, saves its backward the
+    sort."""
+    if mask is not None and x.dim() != 3:
+        raise ValueError(f"a source mask needs (L, N, D) x, got "
+                         f"{tuple(x.shape)}")
+    if not torch.is_grad_enabled() or not (x.requires_grad
+                                           or weights.requires_grad):
+        return _sum_sorted(x, src, seg, weights, offsets, mask)
+    if weights.requires_grad:
+        raise ValueError("spmm_segment has no gradient in its weights")
+    if x.dim() != 2 or mask is not None:
+        raise ValueError("spmm_segment's gradient takes the one-lane "
+                         f"(N, D) call with no mask, got x "
+                         f"{tuple(x.shape)}")
+    return SpmmSegment.apply(x, src, seg, weights, offsets, transposed)
 
 
 def spmm_segment(x: torch.Tensor, src: torch.Tensor, dst: torch.Tensor,

@@ -24,12 +24,15 @@ def spmm_segment_ref(x: torch.Tensor, src: torch.Tensor, seg: torch.Tensor,
     ``x`` (N, D) features; ``src``/``seg`` (E,) int32 (``seg`` is the
     destination, in any order); ``weights`` (E,).  A ``src`` outside
     [0, N) is padding and contributes zero (callers pad with N); a ``seg``
-    outside [0, num_out) is dropped.  Rows with no edge are zero.  The
-    gathered rows are summed CHUNK_ELEMENTS values at a time, in edge
-    order (one chunk below that size): a graph of 62M edges at D = 128
-    would otherwise gather 32 GB at once."""
+    outside [0, num_out) is dropped.  Rows with no edge are zero, and so
+    is every row when N = 0 (the transposed sum of a call with no output
+    row).  The gathered rows are summed CHUNK_ELEMENTS values at a time,
+    in edge order (one chunk below that size): a graph of 62M edges at
+    D = 128 would otherwise gather 32 GB at once."""
     n, d = x.shape
     out = x.new_zeros((num_out + 1, d))
+    if n == 0:                 # every source is padding
+        return out[:num_out]
     step = max(1, CHUNK_ELEMENTS // max(d, 1))
     for lo in range(0, src.shape[0], step):
         s, g = src[lo:lo + step], seg[lo:lo + step]

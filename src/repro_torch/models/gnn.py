@@ -1,13 +1,16 @@
-"""GNN zoo: GatedGCN, GraphSAGE, EGNN, GAT, on positional message passing;
-the forward passes only (the port serves them; training comes later).
+"""GNN zoo: GatedGCN, GraphSAGE, EGNN, GAT, on positional message passing,
+with the train step.
 
-The port of ``src/repro/models/gnn.py``'s forward half.  An edge list is a
+The port of ``src/repro/models/gnn.py``.  An edge list is a
 join index (positions into the node table), aggregation is a positional
 join, and node features are gathered only where touched.  GraphSAGE's
 full-graph mean aggregation goes through the ``spmm_segment`` kernel on
 the card (:func:`sage_layer`); every other aggregation is a plain
 ``index_add_`` (the reference's ``jax.ops.segment_sum``), every dense
 layer a ``torch.matmul``, and nothing here calls ``embedding_bag``.
+Every forward is differentiable: ``spmm_segment``'s gradient is the same
+kernel over the edges grouped by source, which :func:`sort_edges` groups
+once a forward when the features need a gradient.
 
 All four architectures share one interface:
 ``init_gnn(cfg, d_feat, num_classes, generator)`` / ``gnn_forward(params,
@@ -28,12 +31,16 @@ import torch.nn.functional as F
 
 from ..configs.base import GNNConfig
 from ..core.engine import resolve_device
-from ..kernels.spmm_segment.ops import segments, spmm_segment_sorted
+from ..kernels.spmm_segment.ops import (Grouping, segments,
+                                        spmm_segment_sorted,
+                                        transpose_grouping)
+from ..optim.tree import make_train_step
 
 __all__ = ["segment_softmax", "init_gatedgcn_layer", "gatedgcn_layer",
            "init_sage_layer", "SortedEdges", "sort_edges", "sage_layer",
            "init_egnn_layer", "egnn_layer", "init_gat_layer", "gat_layer",
-           "init_gnn", "gnn_forward", "sage_block_forward", "node_xent"]
+           "init_gnn", "gnn_forward", "sage_block_forward", "node_xent",
+           "make_gnn_train_step"]
 
 Params = Dict[str, Any]
 
@@ -135,23 +142,28 @@ def init_sage_layer(g: torch.Generator, din: int, dout: int, device
 
 class SortedEdges(NamedTuple):
     """A graph's edges grouped by destination once, for every
-    :func:`sage_layer` of a forward pass."""
+    :func:`sage_layer` of a forward pass, and by source when the
+    aggregation's gradient is needed."""
 
     src: torch.Tensor       # (E,) sources in destination order
     seg: torch.Tensor       # (E,) destinations, sorted
     offsets: torch.Tensor   # (n + 1,) int32 row starts
     ones: torch.Tensor      # (E,) float32 weights
     deg: torch.Tensor       # (n,) float32 in-degree, at least 1
+    transposed: Optional[Grouping] = None   # the backward's edges
 
 
-def sort_edges(src: torch.Tensor, dst: torch.Tensor, n: int) -> SortedEdges:
+def sort_edges(src: torch.Tensor, dst: torch.Tensor, n: int,
+               transpose: bool = False) -> SortedEdges:
     """One stable sort of the edges by destination (``spmm_segment``'s
-    :func:`segments`)."""
+    :func:`segments`) and, with ``transpose``, one by source
+    (``transpose_grouping``)."""
     s = segments(dst, n)
     deg = torch.clamp(s.offsets.diff().to(torch.float32), min=1.0)
-    return SortedEdges(src.index_select(0, s.order), s.seg, s.offsets,
-                       torch.ones(src.shape, dtype=torch.float32,
-                                  device=src.device), deg)
+    by_dst = src.index_select(0, s.order)
+    ones = torch.ones(src.shape, dtype=torch.float32, device=src.device)
+    t = transpose_grouping(by_dst, s.seg, ones, n) if transpose else None
+    return SortedEdges(by_dst, s.seg, s.offsets, ones, deg, t)
 
 
 def sage_layer(p: Params, h, src, dst, n: int,
@@ -163,7 +175,7 @@ def sage_layer(p: Params, h, src, dst, n: int,
     if edges is None:
         edges = sort_edges(src, dst, n)
     total = spmm_segment_sorted(h, edges.src, edges.seg, edges.ones,
-                                edges.offsets)
+                                edges.offsets, transposed=edges.transposed)
     mean = total / edges.deg[:, None]
     return torch.relu(_apply_dense(p["self"], h)
                       + _apply_dense(p["nbr"], mean))
@@ -255,8 +267,9 @@ def gnn_forward(params: Params, cfg: GNNConfig,
                 graph: Dict[str, torch.Tensor]) -> torch.Tensor:
     """graph: src, dst (E,) int32; feats (N, F); [coords (N, 3)].
     Returns per-node logits (N, num_classes).  GraphSAGE sorts the edges
-    by destination once (:func:`sort_edges`) and runs ``spmm_segment`` on
-    them in each layer."""
+    by destination once (:func:`sort_edges`), and by source when the
+    features need a gradient, and runs ``spmm_segment`` on them in each
+    layer."""
     src, dst = graph["src"], graph["dst"]
     n = graph["feats"].shape[0]
     h = _apply_dense(params["embed_in"], graph["feats"])
@@ -266,7 +279,8 @@ def gnn_forward(params: Params, cfg: GNNConfig,
         for lp in params["layers"]:
             h, e = gatedgcn_layer(lp, h, e, src, dst, n)
     elif cfg.kind == "graphsage":
-        edges = sort_edges(src, dst, n)
+        edges = sort_edges(src, dst, n, transpose=torch.is_grad_enabled()
+                           and h.requires_grad)
         for lp in params["layers"]:
             h = sage_layer(lp, h, src, dst, n, edges)
     elif cfg.kind == "egnn":
@@ -318,3 +332,19 @@ def node_xent(logits: torch.Tensor, labels: torch.Tensor,
     if mask is not None:
         return torch.sum(per * mask) / torch.clamp(torch.sum(mask), min=1.0)
     return per.mean()
+
+
+def make_gnn_train_step(cfg: GNNConfig, optimizer, *, block: bool = False):
+    """``step(params, opt_state, batch) -> (params, opt_state, {"loss",
+    "grad_norm"})``: the node cross-entropy of :func:`gnn_forward` on
+    ``batch`` (src, dst, feats, labels[, mask, coords]), or with
+    ``block`` of :func:`sage_block_forward` (layer_feats, labels), its
+    gradient by autograd, and one ``optimizer.update``."""
+    def loss_fn(params, batch):
+        if block:
+            logits = sage_block_forward(params, cfg, batch)
+            return node_xent(logits, batch["labels"])
+        logits = gnn_forward(params, cfg, batch)
+        return node_xent(logits, batch["labels"], batch.get("mask"))
+
+    return make_train_step(loss_fn, optimizer)

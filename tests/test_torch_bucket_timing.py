@@ -5,12 +5,14 @@ bucket's ``BucketTiming.elapsed_us`` covers its own dispatch, retries,
 evictions, finish and host copy and nothing of another bucket's.  A stub
 ``dispatch`` sleeps a known, different time for each bucket (and for each
 re-dispatch) and returns a batched ``BFSResult`` whose lanes carry their
-root; the timings must be close to each bucket's own sleeps, far from
-their sum, and the lanes, the retry, the eviction, the report and the
-order of the dispatches must be what the executor has always produced.
+root.  The sleeps advance a fake clock that stands in for the executor's
+``time`` module, so the timings are exact and the host's load cannot
+move them: each bucket's ``elapsed_us`` must equal its own sleeps (its
+dispatches and its ``finish`` calls), below their sum, and the lanes, the
+retry, the eviction, the report and the order of the dispatches must be
+what the executor has always produced.
 """
 import dataclasses
-import time
 import warnings
 
 import pytest
@@ -25,8 +27,30 @@ SMALL = port.EngineCaps(8, 32)
 # the seconds each dispatch sleeps: by bucket, then for a re-dispatch
 SLEEP_S = {0: 0.04, 1: 0.015, 2: 0.07}
 REDISPATCH_S = 0.02
-# the clock may run late by this much on a busy host, never early
-SLACK_S = 0.025
+FINISH_S = 0.001        # each finish call
+# float rounding of the fake clock's sums, in seconds
+ROUNDING_S = 1e-9
+
+
+class FakeClock:
+    """The executor's ``time`` module: ``perf_counter`` reads seconds that
+    only ``sleep`` advances."""
+
+    def __init__(self):
+        self.now = 1000.0
+
+    def perf_counter(self) -> float:
+        return self.now
+
+    def sleep(self, seconds: float) -> None:
+        self.now += seconds
+
+
+@pytest.fixture(autouse=True)
+def clock(monkeypatch):
+    fake = FakeClock()
+    monkeypatch.setattr(port, "time", fake)
+    return fake
 
 
 @dataclasses.dataclass(frozen=True)
@@ -45,7 +69,7 @@ def stub(calls: list):
     def dispatch(i, b, caps):
         calls.append((i, tuple(b.roots), caps))
         first = sum(1 for c in calls if c[0] == i) == 1
-        time.sleep(SLEEP_S[i] if first else REDISPATCH_S)
+        port.time.sleep(SLEEP_S[i] if first else REDISPATCH_S)
         roots = torch.tensor(b.roots, dtype=torch.int32)
         small = caps != FALLBACK
         overflow = torch.tensor([small and (r == 14 or r == 12)
@@ -66,7 +90,7 @@ def run(**kwargs):
 
     def finish(i, b, r):
         finished.append((i, tuple(b.roots)))
-        time.sleep(0.001)
+        port.time.sleep(FINISH_S)
         return r
     before = (port.overflow_retry_count(), port.lane_eviction_count())
     with warnings.catch_warnings():
@@ -84,13 +108,17 @@ def run(**kwargs):
 def test_each_bucket_is_timed_on_its_own(to_host):
     out, calls, timings, finished, report, deltas = run(to_host=to_host)
     assert [t.index for t in timings] == [0, 1, 2]
-    own = {0: SLEEP_S[0], 1: SLEEP_S[1] + REDISPATCH_S,
-           2: SLEEP_S[2] + REDISPATCH_S}
+    # bucket 1 finishes its result and its evicted lane's, bucket 2 its
+    # retried result
+    own = {0: SLEEP_S[0] + FINISH_S, 1: SLEEP_S[1] + REDISPATCH_S
+           + 2 * FINISH_S, 2: SLEEP_S[2] + REDISPATCH_S + FINISH_S}
     total = sum(own.values())
     for t in timings:
         s = t.elapsed_us / 1e6
-        assert own[t.index] <= s < own[t.index] + SLACK_S, (t, own)
-        assert s < total - SLACK_S
+        assert abs(s - own[t.index]) < ROUNDING_S, (t, own)
+        # none of another bucket's sleeps: an executor that launched every
+        # bucket before reading any charged them all to the first
+        assert s < own[t.index] + min(own.values()) < total
     # each bucket is dispatched just before it is read: bucket 1's
     # eviction comes before bucket 2's first dispatch
     assert calls == [(0, (10, 13), FALLBACK), (1, (11, 14), SMALL),
@@ -124,4 +152,5 @@ def test_a_deadline_still_skips_after_the_first_bucket():
     assert report.skipped_buckets == [1, 2]
     assert out[1] is port.SKIPPED and out[2] is port.SKIPPED
     assert [c[0] for c in calls] == [0]
-    assert SLEEP_S[0] <= timings[0].elapsed_us / 1e6 < SLEEP_S[0] + SLACK_S
+    assert abs(timings[0].elapsed_us / 1e6 - SLEEP_S[0] - FINISH_S) \
+        < ROUNDING_S

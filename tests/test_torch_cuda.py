@@ -1596,3 +1596,117 @@ def test_check_chaos_on_card(cuda, capsys):
     assert check_chaos.main(["--device", "cuda"]) == 0
     out = capsys.readouterr().out
     assert out.count("PASS chaos/") == len(check_chaos.CLASSES)
+
+
+# --- training: the kernels' gradients and the train cells on the card ---
+
+def _tree_leaves(tree):
+    from repro_torch.optim.tree import leaves
+    return leaves(tree)
+
+
+@pytest.mark.parametrize("d", [4, 128])
+@pytest.mark.parametrize("case", ["padded_hub", "dropped", "hub_many_tiles",
+                                  "medium_s1", "e0"])
+def test_spmm_segment_gradient_on_card(cuda, case, d):
+    """The one-lane call's gradient on the card: the output carries a
+    ``grad_fn``, the backward launches the kernel once (over the edges
+    grouped by source), and ``x``'s gradient is within 1e-5 of each row's
+    sum of absolute terms of the transposed sum run in float64 on the
+    CPU (the kernel sums a hub in a tree, the float64 sum in order)."""
+    x, src, dst, w, num_out = spmm_tile_case(case, d)
+    s = spmm_ops.segments(torch.from_numpy(dst), num_out)
+    args = (torch.from_numpy(src)[s.order], s.seg,
+            torch.from_numpy(w)[s.order], s.offsets)
+    cot = torch.from_numpy(np.random.default_rng(d).standard_normal(
+        (num_out, d)).astype(np.float32))
+    xc = torch.from_numpy(x).to(cuda).requires_grad_(True)
+    before = spmm_ops.LAUNCHES
+    out = spmm_ops.spmm_segment_sorted(xc, *(a.to(cuda) for a in args))
+    assert out.grad_fn is not None
+    out.backward(cot.to(cuda))
+    launched = spmm_ops.LAUNCHES - before
+    t = spmm_ops.transpose_grouping(*args[:3], x.shape[0])
+    want = spmm_segment_ref(cot.double(), t.src, t.seg, t.weights.double(),
+                            x.shape[0])
+    scale = spmm_segment_ref(cot.double().abs(), t.src, t.seg,
+                             t.weights.double().abs(), x.shape[0])
+    got = xc.grad.cpu().double()
+    assert bool(((got - want).abs() <= 1e-5 * scale + 1e-5).all())
+    assert launched == (1 if num_out else 0) + (1 if x.shape[0] else 0)
+
+
+def test_late_gather_gradient_on_card(cuda):
+    """``late_gather``'s output carries a gradient into the table on the
+    card, and the table's gradient equals the CPU run's within 1e-5 of
+    each row's sum of absolute terms (the card's scatter-add uses atomics
+    in no fixed order); the forward launches the kernel once."""
+    rng = np.random.default_rng(7)
+    rows, width = 5000, 10
+    table = torch.from_numpy(rng.standard_normal((rows, width))
+                             .astype(np.float32))
+    pos = torch.from_numpy(np.concatenate([
+        (rng.zipf(1.2, 20000) % rows), rng.integers(-rows, 0, 500),
+        [rows, rows + 3, -rows - 1, -7 * rows]]).astype(np.int32))
+    cot = torch.from_numpy(rng.standard_normal((pos.shape[0], width))
+                           .astype(np.float32))
+    want_t = table.clone().requires_grad_(True)
+    lg_ops.late_gather(want_t, pos).backward(cot)
+    scale_t = table.clone().requires_grad_(True)
+    lg_ops.late_gather(scale_t, pos).backward(cot.abs())
+    got_t = table.to(cuda).requires_grad_(True)
+    before = lg_ops.LAUNCHES
+    out = lg_ops.late_gather(got_t, pos.to(cuda))
+    assert out.grad_fn is not None and lg_ops.LAUNCHES - before == 1
+    torch.testing.assert_close(out.detach().cpu(),
+                               late_gather_ref(table, pos), rtol=0, atol=0)
+    out.backward(cot.to(cuda))
+    assert bool(((got_t.grad.cpu() - want_t.grad).abs()
+                 <= 1e-5 * scale_t.grad + 1e-6).all())
+
+
+def _cell_grads(plan, args, **kwargs):
+    from repro_torch.optim.tree import value_and_grad
+    return value_and_grad(plan.loss, args[0], *args[2:], **kwargs)
+
+
+@pytest.mark.parametrize("arch,shape", [
+    ("graphsage-reddit", "ogb_products"), ("graphsage-reddit", "minibatch_lg"),
+    ("gatedgcn", "molecule"), ("deepfm", "train_batch")])
+def test_train_cell_on_card_matches_cpu(cuda, arch, shape, monkeypatch):
+    """A smoke cell of each family steps on the card: its loss and every
+    gradient within GNN_TOL (relative to each leaf's largest) of the CPU
+    run of the same cell and weights (TF32 off), through the kernels:
+    GraphSAGE's ``spmm_segment`` twice a layer (forward and backward),
+    DeepFM's ``late_gather`` once; the step's metrics are finite."""
+    from repro_torch.launch.steps import build_cell
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    plan = build_cell(arch, shape, smoke=True, device=cuda)
+    cpu_args = _tree_to(list(plan.args), "cpu")
+    kwargs = {}
+    if shape == "minibatch_lg":
+        gen = torch.Generator(device=cuda).manual_seed(int(plan.args[4]))
+        n, draws = plan.args[3].shape[0], []
+        for f in (4, 3):
+            draws.append(torch.randint(0, 1 << 30, (n, f), generator=gen,
+                                       device=cuda, dtype=torch.int32))
+            n *= f
+        kwargs["draws"] = draws
+    spmm_before, lg_before = spmm_ops.LAUNCHES, lg_ops.LAUNCHES
+    loss, grads = _cell_grads(plan, plan.args, **kwargs)
+    spmm_n = spmm_ops.LAUNCHES - spmm_before
+    lg_n = lg_ops.LAUNCHES - lg_before
+    want_loss, want = _cell_grads(plan, cpu_args, **{
+        k: [d.cpu() for d in v] for k, v in kwargs.items()})
+    torch.testing.assert_close(loss.cpu(), want_loss, **GNN_TOL)
+    for g, w in zip(_tree_leaves(grads), _tree_leaves(want)):
+        assert g.device.type == "cuda"
+        scale = float(w.abs().max()) or 1.0
+        torch.testing.assert_close(g.cpu(), w, rtol=GNN_TOL["rtol"],
+                                   atol=GNN_TOL["atol"] * scale)
+    full_sage = (arch, shape) == ("graphsage-reddit", "ogb_products")
+    assert spmm_n == (4 if full_sage else 0)
+    assert lg_n == (1 if arch == "deepfm" else 0)
+    _, state, metrics = plan.fn(*plan.args, **kwargs)
+    assert int(state["step"]) == 1
+    assert all(bool(torch.isfinite(v)) for v in metrics.values())
