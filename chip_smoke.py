@@ -269,7 +269,32 @@ Phases (any failure raises and the script exits non-zero):
    gradient's own time (``train late_gather gradient:``), then one lazy
    step whose untouched rows and moments are bit-equal to before and
    whose touched rows are within 1e-5 of its CPU run;
-9. print one ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}``
+9. LM serving (``repro_torch.models.transformer``, ``launch.serve
+   .serve_batch``) at the published widths (``src/repro/configs``),
+   random weights from a seeded CUDA generator, TF32 off: qwen2-0.5b at
+   full width and depth (24 layers) and deepseek-v2-lite-16b at 2 of its
+   27 layers, each in float32, a prefill of 2 x 64 ``lm_batch`` tokens
+   and 8 greedy decode steps on the card against the port's CPU run of
+   the same weights fed the card's tokens, every block's logits within
+   1e-4 of the largest and each greedy token equal to the CPU's argmax
+   where its top two differ by more (``lm check:``); then, in the configs'
+   bfloat16 (qwen2's weights cast, deepseek's 27 layers drawn a layer at a
+   time into bfloat16), one ``lm:`` line a row with its cuts of
+   ``LM_SHAPES``: ``prefill_32k`` at batch 1 for both, ``decode_32k`` at
+   batch 32 (qwen2) and 16 (deepseek), 16 steps against a seeded cache
+   of 32,768 positions, and qwen2's ``serve_batch`` at batch 8, prompt
+   512, gen 32 (warm ms, ms a token, tok/s, device ms and the host's
+   share from ``torch.profiler``, device launches, ``late_gather``
+   launches held to one a block for the lookup and two a MoE layer,
+   peak MiB above what was held); ``lm attention:`` the ported
+   ``chunked_attention`` beside ``F.scaled_dot_product_attention`` at
+   qwen2's prefill shape (a yardstick); ``lm late_gather:`` the kernel
+   bit-equal to its plain version at qwen2's float32 token lookup of the
+   32,768 prefill tokens and at deepseek's layer-0 MoE dispatch (its
+   routing's sentinels T) and combine (sentinels E·cap), timed beside
+   the plain version and ``index_select`` with its bound; ``lm phase:``
+   its seconds;
+10. print one ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}``
    line last.
 
 It imports nothing of JAX and nothing of the JAX package ``repro``.
@@ -295,7 +320,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 from repro_torch.configs import registry  # noqa: E402
 from repro_torch.configs.deepfm import CONFIG as DEEPFM  # noqa: E402
 from repro_torch.configs.registry import (GNN_SHAPES,  # noqa: E402
-                                          RECSYS_SHAPES)
+                                          LM_SHAPES, RECSYS_SHAPES)
 from repro_torch.convert import dataset_from_numpy  # noqa: E402
 from repro_torch.core.bitmap import (diropt_hybrid_plan,  # noqa: E402
                                      diropt_plan)
@@ -341,6 +366,10 @@ from repro_torch.data import graphgen  # noqa: E402
 from repro_torch.data.sampler import (DRAW_HIGH,  # noqa: E402
                                       gather_block_features, sample_block)
 from repro_torch.models import gnn, recsys  # noqa: E402
+from repro_torch.models import layers as lm_layers  # noqa: E402
+from repro_torch.models import transformer as tfm  # noqa: E402
+from repro_torch.data.tokens import lm_batch  # noqa: E402
+from repro_torch.launch.serve import serve_batch  # noqa: E402
 from repro_torch.checkpoint import CheckpointManager  # noqa: E402
 from repro_torch.launch import steps as train_steps  # noqa: E402
 from repro_torch.optim.tree import leaves as tree_leaves  # noqa: E402
@@ -4133,6 +4162,424 @@ def train_phase(card: str, by_path: dict, flush) -> tuple:
 
 
 # ---------------------------------------------------------------------------
+# phase 9: LM serving (models/transformer.py, launch/serve.py's LM mode)
+# ---------------------------------------------------------------------------
+
+LM_SMOKE = False               # True: the SMOKE configs, small shapes (a CPU
+#                                rehearsal)
+LM_SEED = 0                    # weights (a CUDA generator) and token streams
+QWEN, DEEPSEEK = "qwen2-0.5b", "deepseek-v2-lite-16b"
+# the card against the port's CPU run of the same weights, float32, TF32
+# off: every block's logits within LM_TOL of the largest; the card's greedy
+# token equal to the CPU's argmax where the CPU's top two differ by more
+LM_TOL = 1e-4
+DEEPSEEK_CHECK_LAYERS = 2      # of 27: its float32 copy on the host ~6.3 GB
+# the timed rows, each a cut of LM_SHAPES (src/repro/configs/registry.py:33)
+# at the config's bfloat16: prefill_32k at batch 1 of 32; decode_32k at
+# batch 32 (qwen2) or 16 (deepseek) of 128 against a seeded cache of
+# 32,768 positions, 16 steps filling its last 16; serve_batch end to end
+LM_FULL = dict(check=dict(batch=2, seq=64, steps=8),
+               prefill=dict(batch=1, seq=LM_SHAPES["prefill_32k"]["seq"]),
+               decode=dict(batch={QWEN: 32, DEEPSEEK: 16},
+                           seq=LM_SHAPES["decode_32k"]["seq"], steps=16),
+               serve=dict(batch=8, prompt=512, gen=32))
+LM_REHEARSAL = dict(check=dict(batch=2, seq=16, steps=2),
+                    prefill=dict(batch=1, seq=48),
+                    decode=dict(batch={QWEN: 2, DEEPSEEK: 2}, seq=40,
+                                steps=6),
+                    serve=dict(batch=2, prompt=12, gen=3))
+# warm runs after the counted one (a 32k prefill takes 8-14 s on an H100)
+LM_WARM_RUNS = {"prefill": 1, "decode": 1, "serve": 3}
+LM_PROFILE_STEPS = 4           # decode steps in a decode row's profile
+
+
+def lm_shapes() -> dict:
+    return LM_REHEARSAL if LM_SMOKE else LM_FULL
+
+
+def lm_config(arch: str, **changes):
+    cfg, family = registry.get_config(arch, smoke=LM_SMOKE)
+    require(family == "lm", f"{arch} is not an LM arch")
+    return dataclasses.replace(cfg, **changes)
+
+
+def lm_gathers(cfg) -> int:
+    """``late_gather`` launches of one block through the model: the token
+    lookup, and the dispatch and combine of each MoE layer."""
+    return 1 + (2 * cfg.n_layers if cfg.moe is not None else 0)
+
+
+def lm_tokens(cfg, batch: int, seq: int, step: int = 0) -> torch.Tensor:
+    return torch.from_numpy(lm_batch(LM_SEED, step, batch, seq,
+                                     cfg.vocab)["tokens"]).to(DEVICE)
+
+
+def lm_init(cfg, dtype) -> tuple[dict, float]:
+    """Random weights from a seeded CUDA generator, drawn a layer at a time
+    and held in ``dtype``, and the seconds it took."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = tfm.init_lm(cfg, torch.Generator(device=DEVICE).manual_seed(
+        LM_SEED), DEVICE, dtype=dtype)
+    torch.cuda.synchronize()
+    return params, time.perf_counter() - t0
+
+
+def tree_mib(tree) -> float:
+    return sum(t.nbytes for t in tree_leaves(tree)) / 2 ** 20
+
+
+def greedy_blocks(params, cfg, prompts, steps: int, max_len: int):
+    """Prefill, then ``steps`` greedy decode steps: each block's logits and
+    the tokens fed."""
+    logits, cache = tfm.prefill(params, prompts, cfg, max_len=max_len)
+    outs, fed = [logits], []
+    for _ in range(steps):
+        tok = torch.argmax(logits, dim=-1).to(torch.int32)
+        fed.append(tok)
+        logits, cache = tfm.decode_step(params, tok, cache, cfg)
+        outs.append(logits)
+    return outs, fed
+
+
+def lm_check(label: str, cfg, params, card: str, by_path: dict) -> dict:
+    """The card's greedy prefill + decode (counted into the lm path)
+    against the port's CPU run of the same float32 weights fed the card's
+    tokens."""
+    c = lm_shapes()["check"]
+    prompts = lm_tokens(cfg, c["batch"], c["seq"])
+    max_len = c["seq"] + c["steps"]
+    (outs, fed), launches = counted_into(
+        by_path["lm"],
+        lambda: greedy_blocks(params, cfg, prompts, c["steps"], max_len))
+    want_lg = lm_gathers(cfg) * (1 + c["steps"])
+    require(launches == {**dict.fromkeys(KERNEL_OPS, 0),
+                         "late_gather": want_lg},
+            f"{label}: launches {launches}, want late_gather {want_lg} "
+            "times and nothing else")
+    t0 = time.perf_counter()
+    cpu = tree_to(params, "cpu")
+    logits, cache = tfm.prefill(cpu, prompts.cpu(), cfg, max_len=max_len)
+    want = [logits]
+    for tok in fed:
+        logits, cache = tfm.decode_step(cpu, tok.cpu(), cache, cfg)
+        want.append(logits)
+    cpu_s = time.perf_counter() - t0
+    del cpu, cache
+    worst, unclear = 0.0, 0
+    for i, (g, w) in enumerate(zip(outs, want)):
+        g = g.cpu()
+        require(g.shape == w.shape and bool(torch.isfinite(g).all()),
+                f"{label}: block {i} logits {tuple(g.shape)} or non-finite")
+        scale = float(w.abs().max())
+        err = float((g - w).abs().max())
+        require(err <= LM_TOL * scale,
+                f"{label}: block {i} logits differ from the CPU run by "
+                f"{err}, beyond {LM_TOL} of {scale}")
+        worst = max(worst, err / scale)
+        if i < len(fed):
+            top2 = torch.topk(w, 2, dim=-1).values
+            clear = (top2[:, 0] - top2[:, 1]) > LM_TOL * scale
+            unclear += int((~clear).sum())
+            require(torch.equal(fed[i].cpu()[clear],
+                                torch.argmax(w, -1).to(torch.int32)[clear]),
+                    f"{label}: block {i}'s greedy token differs from the "
+                    "CPU run's with a clear margin")
+    return {"check": label, "batch": c["batch"], "prompt": c["seq"],
+            "decode_steps": c["steps"], "max_rel_err": worst, "tol": LM_TOL,
+            "tokens_within_tol_of_a_tie": unclear,
+            "late_gather_launches": want_lg, "cpu_s": cpu_s,
+            "layers": cfg.n_layers, "dtype": cfg.dtype, "card": card}
+
+
+def lm_time_ms(fn, reps: int) -> float:
+    """Median of ``reps`` device times of ``fn`` (CUDA events), after one
+    warm run."""
+    fn()
+    torch.cuda.synchronize()
+    ms = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        ms.append(start.elapsed_time(end))
+    return statistics.median(ms)
+
+
+def lm_row(label: str, fn, by_path: dict, want_lg: int, *, kind: str,
+           tokens: int, steps: int, cuts: str, card: str,
+           profile_fn=None, profile_steps: int = 0) -> tuple:
+    """One counted run of ``fn`` (its launches held to ``want_lg``
+    ``late_gather`` launches and nothing else) with its peak device memory
+    above what was held, then its warm ms (host clock and a sync, median of
+    LM_WARM_RUNS[kind] runs after the counted one), and one profiled run:
+    of ``fn``, or of ``profile_fn``, which decodes ``profile_steps`` of the
+    ``steps`` tokens (a profile of every step's ~15k launches costs the
+    session tens of seconds), the host's share then read per token."""
+    torch.cuda.synchronize()
+    t_row = time.perf_counter()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out, launches = counted_into(by_path["lm"], fn)
+    first_ms = (time.perf_counter() - t0) * 1e3
+    peak_mib = (torch.cuda.max_memory_allocated() - held) / 2 ** 20
+    require(launches == {**dict.fromkeys(KERNEL_OPS, 0),
+                         "late_gather": want_lg},
+            f"{label}: launches {launches}, want late_gather {want_lg} "
+            "times and nothing else")
+    ms = []
+    for _ in range(LM_WARM_RUNS[kind]):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        last = fn()
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    warm = statistics.median(ms)
+    row = {"row": label, "warm_ms": warm, "warm_runs": len(ms),
+           "first_ms": first_ms,
+           "ms_per_token": warm / steps if steps else None,
+           "tok_per_s": tokens / (warm / 1e3)}
+    if profile_fn is None:
+        prof = profile_call(label, fn, warm)
+        row.update(device_ms=prof["device_ms"],
+                   host_share=prof["idle_share"])
+    else:
+        prof = profile_call(label, profile_fn, warm * profile_steps / steps)
+        per_token = prof["device_ms"] / profile_steps
+        row.update(profiled_steps=profile_steps, device_ms=prof["device_ms"],
+                   device_ms_per_token=per_token,
+                   host_share=1 - per_token / row["ms_per_token"])
+    row.update({"device_launches": prof["device_launches"],
+                "late_gather_launches": want_lg, "peak_mib": peak_mib,
+                "held_mib": held / 2 ** 20, "cuts": cuts,
+                "top": prof["top"], "s": time.perf_counter() - t_row,
+                "card": card})
+    return out, last, row
+
+
+def lm_prefill_row(arch: str, cfg, params, by_path: dict, card: str):
+    p = lm_shapes()["prefill"]
+    toks = lm_tokens(cfg, p["batch"], p["seq"], step=1)
+    (logits, _), _, row = lm_row(
+        f"{arch} prefill_32k", lambda: tfm.prefill(params, toks, cfg),
+        by_path, lm_gathers(cfg), kind="prefill",
+        tokens=p["batch"] * p["seq"], steps=0,
+        cuts=(f"batch {LM_SHAPES['prefill_32k']['batch']} -> {p['batch']}"
+              f"; seq {p['seq']}"), card=card)
+    require(tuple(logits.shape) == (p["batch"], cfg.vocab)
+            and bool(torch.isfinite(logits).all()),
+            f"{arch} prefill: logits {tuple(logits.shape)} or non-finite")
+    return row
+
+
+def lm_decode_row(arch: str, cfg, params, by_path: dict, card: str):
+    """``decode_step`` ``steps`` times against a cache of ``seq`` positions
+    seeded with normal values (a CUDA generator), the first seq - steps of
+    them taken as written, so the steps fill the rest."""
+    d = lm_shapes()["decode"]
+    b, smax, steps = d["batch"][arch], d["seq"], d["steps"]
+    cache = tfm.init_cache(cfg, b, smax, device=DEVICE)
+    gen = torch.Generator(device=DEVICE).manual_seed(LM_SEED + 1)
+    for t in (cache.a, cache.b):
+        t.normal_(generator=gen)
+    first = lm_tokens(cfg, b, 1, step=2)[:, 0]
+
+    def run(n=steps):
+        c = cache._replace(length=smax - n)
+        tok = first
+        for _ in range(n):
+            logits, c = tfm.decode_step(params, tok, c, cfg)
+            tok = torch.argmax(logits, dim=-1).to(torch.int32)
+        return logits, c
+
+    (logits, c), _, row = lm_row(
+        f"{arch} decode_32k", run, by_path, lm_gathers(cfg) * steps,
+        kind="decode", tokens=b * steps, steps=steps,
+        cuts=(f"batch {LM_SHAPES['decode_32k']['batch']} -> {b}; a cache of "
+              f"{smax} positions, {smax - steps} seeded, {steps} steps "
+              "fill the rest"), card=card,
+        profile_fn=lambda: run(LM_PROFILE_STEPS),
+        profile_steps=LM_PROFILE_STEPS)
+    require(c.length == smax and bool(torch.isfinite(logits).all()),
+            f"{arch} decode: length {c.length} or non-finite logits")
+    row["cache_mib"] = (cache.a.nbytes + cache.b.nbytes) / 2 ** 20
+    return row
+
+
+def lm_serve_row(arch: str, cfg, params, by_path: dict, card: str):
+    s = lm_shapes()["serve"]
+    prompts = lm_tokens(cfg, s["batch"], s["prompt"], step=3)
+    (toks, _), (_, stats), row = lm_row(
+        f"{arch} serve_batch", lambda: serve_batch(cfg, params, prompts,
+                                                   s["gen"]),
+        by_path, lm_gathers(cfg) * (1 + s["gen"]), kind="serve",
+        tokens=s["batch"] * s["gen"], steps=s["gen"],
+        cuts=f"batch {s['batch']}, prompt {s['prompt']}, gen {s['gen']}",
+        card=card)
+    row["ms_per_token"] = stats["decode_s"] * 1e3 / s["gen"]
+    require(tuple(toks.shape) == (s["batch"], s["gen"])
+            and bool(((toks >= 0) & (toks < cfg.vocab)).all()),
+            f"{arch} serve_batch: tokens {tuple(toks.shape)} out of range")
+    row.update({f"serve_batch_{k}": v for k, v in stats.items()})
+    return row
+
+
+def lm_attention_yardstick(cfg, card: str) -> dict:
+    """The ported ``chunked_attention`` at qwen2's prefill shape beside
+    ``F.scaled_dot_product_attention`` (causal) on the same bfloat16 q, k
+    and v, the KV heads repeated for it; a yardstick, not a path."""
+    import torch.nn.functional as F
+    s = lm_shapes()["prefill"]["seq"]
+    hkv, hd = cfg.n_kv_heads, cfg.head_dim
+    g = cfg.n_heads // hkv
+    gen = torch.Generator(device=DEVICE).manual_seed(LM_SEED + 2)
+
+    def normal(*shape):
+        return torch.randn(shape, generator=gen, device=DEVICE).to(
+            torch.bfloat16)
+    q, k, v = normal(1, hkv, g, s, hd), normal(1, hkv, s, hd), \
+        normal(1, hkv, s, hd)
+    qh = q.reshape(1, hkv * g, s, hd)
+    kh = k[:, :, None].expand(1, hkv, g, s, hd).reshape(1, hkv * g, s, hd)
+    vh = v[:, :, None].expand(1, hkv, g, s, hd).reshape(1, hkv * g, s, hd)
+
+    def ours():
+        return lm_layers.chunked_attention(q, k, v, causal=True,
+                                           chunk=cfg.attn_chunk, q_start=0,
+                                           kv_len=s)
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qh, kh, vh, is_causal=True)
+    err = max_abs_err(ours().reshape(1, hkv * g, s, hd).float(),
+                      sdpa().float())
+    ms, sdpa_ms = lm_time_ms(ours, 2), lm_time_ms(sdpa, 10)
+    return {"shape": f"q (1, {hkv}, {g}, {s}, {hd}) bf16, causal, chunk "
+                     f"{cfg.attn_chunk}",
+            "chunked_attention_ms": ms, "sdpa_ms": sdpa_ms,
+            "ratio": ms / sdpa_ms, "max_abs_err": err,
+            "chunked_float32_flops": 4.0 * hkv * g * s * s * hd,
+            "card": card}
+
+
+def lm_gather_cases(qwen_embed, ds_params, ds_cfg, flush) -> dict:
+    """``late_gather`` against its plain version at the LM path's shapes:
+    qwen2's float32 token lookup at the prefill tokens, and deepseek's
+    layer-0 MoE dispatch (its bfloat16 tokens at the (E·cap,) positions of
+    the layer's own routing of the prefill tokens, empty slots T) and
+    combine (the experts' rows at the (T·k,) slots, dropped choices
+    E·cap)."""
+    p = lm_shapes()["prefill"]
+    qcfg = lm_config(QWEN)
+    qtoks = lm_tokens(qcfg, p["batch"], p["seq"], step=1).reshape(-1)
+    cases = {"token_lookup": late_gather_case([qwen_embed], qtoks, flush)}
+    cfg = ds_cfg
+    toks = lm_tokens(cfg, p["batch"], p["seq"], step=1)
+    lp = tfm.layer_params(ds_params["layers"], 0)
+    dt = getattr(torch, cfg.dtype)
+    t = toks.numel()
+    x = lg_ops.late_gather(ds_params["embed"], toks.reshape(-1)).reshape(
+        1, t, cfg.d_model).to(dt)
+    a, _ = lm_layers.mla_attention(
+        lp["attn"], lm_layers.rmsnorm(x, lp["ln1"], cfg.norm_eps), cfg,
+        positions=torch.arange(t, device=DEVICE))
+    xt = lm_layers.rmsnorm(x + a, lp["ln2"], cfg.norm_eps).reshape(
+        t, cfg.d_model).contiguous()
+    del x, a
+    route = lm_layers.moe_route(lp["ffn"], xt, cfg)
+    e = cfg.moe.num_experts
+    xg = lg_ops.late_gather(xt, route.dispatch).reshape(e, route.cap, -1)
+    w = lp["ffn"]
+    h = torch.nn.functional.silu(torch.einsum(
+        "ecd,edf->ecf", xg, w["w1"].to(dt))) * torch.einsum(
+            "ecd,edf->ecf", xg, w["w3"].to(dt))
+    y = torch.einsum("ecf,efd->ecd", h, w["w2"].to(dt)).reshape(
+        e * route.cap, -1).contiguous()
+    del xg, h
+    cases["moe_dispatch"] = late_gather_case([xt], route.dispatch, flush)
+    cases["moe_combine"] = late_gather_case([y], route.slot, flush)
+    cases["moe_dispatch"]["empty_slots"] = int((route.dispatch == t).sum())
+    cases["moe_combine"]["dropped_choices"] = int((~route.keep).sum())
+    cases["moe_dispatch"]["cap"] = route.cap
+    return cases
+
+
+def lm_phase(card: str, by_path: dict, flush) -> dict:
+    """Phase 9: qwen2-0.5b at full width and depth and deepseek-v2-lite-16b
+    at full width, each against the port's CPU run in float32, then timed
+    in bfloat16 (one ``lm:`` line a row); ``late_gather`` at the path's
+    shapes.  Returns ``late_gather``'s LM cases."""
+    t_phase = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    by_path["lm"] = dict.fromkeys(KERNEL_OPS, 0)
+    bf16 = torch.bfloat16
+
+    # qwen2-0.5b: float32 against the CPU, then its weights cast to the
+    # config's bfloat16 for the timed rows
+    cfg32 = lm_config(QWEN, dtype="float32")
+    params32, init_s = lm_init(cfg32, torch.float32)
+    print("lm model: " + json.dumps({
+        "arch": QWEN, "layers": cfg32.n_layers, "d_model": cfg32.d_model,
+        "params": cfg32.param_count(), "float32_mib": tree_mib(params32),
+        "init_s": init_s, "card": card}), flush=True)
+    print("lm check: " + json.dumps(lm_check(f"{QWEN} float32", cfg32,
+                                             params32, card, by_path)),
+          flush=True)
+    cfg = lm_config(QWEN)
+    params = tree_map(lambda t: t.to(getattr(torch, cfg.dtype)), params32)
+    qwen_embed = params32["embed"]
+    del params32
+    torch.cuda.empty_cache()
+    for row in (lm_prefill_row, lm_decode_row, lm_serve_row):
+        print("lm: " + json.dumps(row(QWEN, cfg, params, by_path, card)),
+              flush=True)
+        torch.cuda.empty_cache()
+    print("lm attention: " + json.dumps(lm_attention_yardstick(cfg, card)),
+          flush=True)
+    del params
+    torch.cuda.empty_cache()
+
+    # deepseek-v2-lite-16b: 2 of its 27 layers in float32 against the CPU,
+    # then all 27 held in bfloat16 (a layer at a time) for the timed rows
+    full = lm_config(DEEPSEEK)
+    cfg32 = lm_config(DEEPSEEK, dtype="float32",
+                      n_layers=min(DEEPSEEK_CHECK_LAYERS, full.n_layers))
+    params32, init_s = lm_init(cfg32, torch.float32)
+    check = lm_check(f"{DEEPSEEK} float32, {cfg32.n_layers} of "
+                     f"{full.n_layers} layers", cfg32, params32, card,
+                     by_path)
+    check["float32_mib"] = tree_mib(params32)
+    print("lm check: " + json.dumps(check), flush=True)
+    del params32
+    torch.cuda.empty_cache()
+    params, init_s = lm_init(full, bf16)
+    print("lm model: " + json.dumps({
+        "arch": DEEPSEEK, "layers": full.n_layers, "d_model": full.d_model,
+        "params": full.param_count(), "bfloat16_mib": tree_mib(params),
+        "init_s": init_s, "card": card}), flush=True)
+    cases = lm_gather_cases(qwen_embed, params, full, flush)
+    del qwen_embed
+    torch.cuda.empty_cache()
+    print("lm late_gather: " + json.dumps({**cases, "card": card}),
+          flush=True)
+    for row in (lm_prefill_row, lm_decode_row):
+        print("lm: " + json.dumps(row(DEEPSEEK, full, params, by_path,
+                                      card)), flush=True)
+        torch.cuda.empty_cache()
+    del params
+    torch.cuda.empty_cache()
+    require(by_path["lm"]["late_gather"] > 0,
+            "the LM path never launched late_gather")
+    print(f"lm phase: {time.perf_counter() - t_phase:.3f} s (host clock), "
+          f"launches {json.dumps(by_path['lm'])}", flush=True)
+    return cases
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> None:
     if not torch.cuda.is_available():
@@ -4564,6 +5011,8 @@ def main() -> None:
     # training last: the same graphs again, at the cells' own seeds
     sp["ogb_products_backward"], lg["train_gradient"] = train_phase(
         card, by_path, flush)
+    # LM serving last: its models come to the card after every earlier path
+    lg["lm"] = lm_phase(card, by_path, flush)
     for name, entry in kernels.items():
         entry["launches"] = sum(n[name] for n in by_path.values())
         entry["launches_by_path"] = {p: n[name] for p, n in by_path.items()}

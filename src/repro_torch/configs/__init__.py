@@ -1,2 +1,3 @@
-"""Configurations of the models the port serves: DeepFM and the four GNN
-architectures (``registry`` maps an arch id to its module)."""
+"""Configurations of the models the port serves: the five language
+models, DeepFM and the four GNN architectures (``registry`` maps an arch
+id to its module)."""

@@ -1,0 +1,19 @@
+"""Phi-3.5-MoE 42B / 6.6B active.  [hf:microsoft/Phi-3.5-MoE-instruct]
+
+32L d_model=4096 32H (GQA kv=8) d_ff=6400 vocab=32064, 16 experts top-2.
+"""
+from .base import LMConfig, MoEConfig
+
+CONFIG = LMConfig(
+    name="phi3.5-moe-42b-a6.6b",
+    n_layers=32, d_model=4096, n_heads=32, n_kv_heads=8, d_ff=6400,
+    vocab=32064,
+    moe=MoEConfig(num_experts=16, top_k=2, num_shared=0, d_expert=6400),
+)
+
+SMOKE = LMConfig(
+    name="phi3.5-moe-smoke",
+    n_layers=2, d_model=64, n_heads=4, n_kv_heads=2, d_ff=96, vocab=128,
+    attn_chunk=16, loss_chunk=8,
+    moe=MoEConfig(num_experts=4, top_k=2, num_shared=0, d_expert=96),
+)

@@ -1,10 +1,12 @@
 """Architecture and shape registry of the models the port serves and
-trains: the four GNN architectures and DeepFM, with their published input
-shapes and the reduced shapes of the CPU tests (the reference's
-``src/repro/configs/registry.py``, its own copy).  ``cells`` enumerates
-their (arch x shape) cells, which ``launch.steps.build_cell`` builds.  The
-language models and the paper's BFS arch are left out: the port has no LM
-yet, and the BFS deployment is driven through ``repro_torch.core.engine``
+trains: the five language models, the four GNN architectures and DeepFM,
+with their published input shapes and the reduced shapes of the CPU
+tests (the reference's ``src/repro/configs/registry.py``, its own copy).
+``cells`` enumerates the (arch x shape) cells of the GNN and recsys
+families, which ``launch.steps.build_cell`` builds; the LM cells join
+them with ROADMAP item 10 (the LM models serve through
+``models.transformer`` and ``launch.serve``).  The paper's BFS arch is
+left out: its deployment is driven through ``repro_torch.core.engine``
 directly.
 """
 from __future__ import annotations
@@ -15,11 +17,27 @@ from typing import Any, Iterator
 
 ARCHS: dict[str, tuple[str, str]] = {
     # arch id                  family    config module
+    "deepseek-v2-lite-16b":   ("lm",
+                               "repro_torch.configs.deepseek_v2_lite_16b"),
+    "phi3.5-moe-42b":         ("lm", "repro_torch.configs.phi35_moe_42b"),
+    "qwen2-0.5b":             ("lm", "repro_torch.configs.qwen2_0_5b"),
+    "stablelm-1.6b":          ("lm", "repro_torch.configs.stablelm_1_6b"),
+    "stablelm-12b":           ("lm", "repro_torch.configs.stablelm_12b"),
     "gatedgcn":               ("gnn", "repro_torch.configs.gatedgcn"),
     "graphsage-reddit":       ("gnn", "repro_torch.configs.graphsage_reddit"),
     "egnn":                   ("gnn", "repro_torch.configs.egnn"),
     "gat-cora":               ("gnn", "repro_torch.configs.gat_cora"),
     "deepfm":                 ("recsys", "repro_torch.configs.deepfm"),
+}
+
+# the families whose cells ``cells`` yields
+CELL_FAMILIES = ("gnn", "recsys")
+
+LM_SHAPES: dict[str, dict[str, Any]] = {
+    "train_4k":    dict(kind="train",   seq=4096,   batch=256),
+    "prefill_32k": dict(kind="prefill", seq=32768,  batch=32),
+    "decode_32k":  dict(kind="decode",  seq=32768,  batch=128),
+    "long_500k":   dict(kind="decode",  seq=524288, batch=1),
 }
 
 GNN_SHAPES: dict[str, dict[str, Any]] = {
@@ -43,6 +61,12 @@ RECSYS_SHAPES: dict[str, dict[str, Any]] = {
 }
 
 # reduced dims for per-cell smoke tests (same code path, CPU-sized)
+SMOKE_LM_SHAPES = {
+    "train_4k":    dict(kind="train",   seq=32,  batch=2),
+    "prefill_32k": dict(kind="prefill", seq=32,  batch=2),
+    "decode_32k":  dict(kind="decode",  seq=32,  batch=2),
+    "long_500k":   dict(kind="decode",  seq=64,  batch=1),
+}
 SMOKE_GNN_SHAPES = {
     "full_graph_sm": dict(kind="full_graph", n_nodes=120, n_edges=480,
                           d_feat=24, n_classes=5),
@@ -71,13 +95,16 @@ def get_config(arch: str, smoke: bool = False):
 
 
 def shapes_for(family: str, smoke: bool = False) -> dict[str, dict]:
-    """The shapes of a family ("gnn" or "recsys"), published or smoke."""
+    """The shapes of a family ("lm", "gnn" or "recsys"), published or
+    smoke."""
+    if family == "lm":
+        return SMOKE_LM_SHAPES if smoke else LM_SHAPES
     if family == "gnn":
         return SMOKE_GNN_SHAPES if smoke else GNN_SHAPES
     if family == "recsys":
         return SMOKE_RECSYS_SHAPES if smoke else RECSYS_SHAPES
-    raise ValueError(f"the port has no {family!r} shapes yet (the LM and "
-                     "BFS entries come with ROADMAP items 9-10)")
+    raise ValueError(f"the port has no {family!r} shapes yet (the BFS "
+                     "entries come with ROADMAP item 10)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -89,9 +116,11 @@ class Cell:
 
 
 def cells(smoke: bool = False) -> Iterator[Cell]:
-    """Every (arch x shape) cell of the GNN and recsys families, in the
-    reference's order."""
+    """Every (arch x shape) cell of the GNN and recsys families
+    (``CELL_FAMILIES``), in the reference's order."""
     for arch, (family, _) in ARCHS.items():
+        if family not in CELL_FAMILIES:
+            continue
         for shape_id, dims in shapes_for(family, smoke).items():
             yield Cell(arch=arch, shape=shape_id, family=family,
                        dims=dict(dims))

@@ -7,7 +7,8 @@ keeping each column's dtype.  DeepFM's parameters cross the same way: the
 reference's ``init_deepfm`` pytree as numpy arrays (for example
 ``jax.tree_util.tree_map(np.asarray, params)``) become the port's
 parameter dictionary, the GNN archs' ``init_gnn`` trees become the
-port's ``models.gnn`` trees, and an optimizer's state (``AdamW``'s
+port's ``models.gnn`` trees, the LM archs' ``init_lm`` trees become the
+port's ``models.transformer`` trees, and an optimizer's state (``AdamW``'s
 ``{"mu", "nu", "step"}`` or ``sgd_momentum``'s ``{"vel", "step"}``)
 crosses as the parameters do, through ``tree_from_numpy``.
 ``tree_to_numpy`` hands the port's trees back.
@@ -23,7 +24,8 @@ from .core.engine import Dataset, resolve_device
 from .core.table import ColumnTable
 
 __all__ = ["dataset_from_numpy", "deepfm_params_from_numpy",
-           "gnn_params_from_numpy", "tree_from_numpy", "tree_to_numpy"]
+           "gnn_params_from_numpy", "lm_params_from_numpy",
+           "tree_from_numpy", "tree_to_numpy"]
 
 
 def dataset_from_numpy(columns: Mapping[str, np.ndarray], num_vertices: int,
@@ -84,6 +86,17 @@ def gnn_params_from_numpy(params: Any, device=None) -> Any:
     ``jax.tree_util.tree_map(np.asarray, params)``): the same nesting of
     dicts and lists, each array a tensor of its dtype on ``device``
     (``None``: the card, raising where CUDA is unavailable)."""
+    return tree_from_numpy(params, device)
+
+
+def lm_params_from_numpy(params: Any, device=None) -> Any:
+    """The port's LM parameters (``models.transformer``) from the
+    reference's ``init_lm`` tree as numpy arrays (for example
+    ``jax.tree_util.tree_map(np.asarray, params)``): ``embed``,
+    ``layers`` (each leaf with its leading ``n_layers`` axis),
+    ``final_ln`` and ``unembed``, each array a tensor of its dtype (a
+    bfloat16 one included) on ``device`` (``None``: the card, raising
+    where CUDA is unavailable)."""
     return tree_from_numpy(params, device)
 
 

@@ -1,15 +1,22 @@
-"""Serving driver of the port, traversal mode: the plan-cached,
-reach-bucketed graph-query serving path
-(:class:`repro_torch.planner.serving.ServingSession`) on the card.  Build a
-graph, then answer batches of per-user traversal roots, one bucketed
-dispatch per reach class, with the plan cache amortizing
-parse/stats/costing across requests:
+"""Serving drivers of the port.  Both modes run on the card unless
+``--device cpu`` is given (no card: they raise, they do not fall back to
+the CPU).
+
+LM mode — batched prefill + greedy decode with a position-addressed
+cache (``models.transformer``), random weights from a seed held in the
+config's dtype:
+
+    python -m repro_torch.launch.serve --arch qwen2-0.5b --smoke \\
+        --batch 4 --prompt-len 32 --gen 16
+
+Traversal mode — the plan-cached, reach-bucketed graph-query serving path
+(:class:`repro_torch.planner.serving.ServingSession`).  Build a graph,
+then answer batches of per-user traversal roots, one bucketed dispatch
+per reach class, with the plan cache amortizing parse/stats/costing
+across requests:
 
     python -m repro_torch.launch.serve --traversal --vertices 20000 \\
         --height 10 --batch 8 --requests 32 --depth 4
-
-It runs on the card unless ``--device cpu`` is given (no card: it raises,
-it does not fall back to the CPU).
 
 With ``--plan-store PATH`` the session persists its plan + calibration
 caches: the first run writes PATH, every later run rehydrates from it and
@@ -23,9 +30,6 @@ exposition on exit (latency histograms, cache hit counters, overflow
 retries, calibrator refits); ``--trace PATH`` traces every request (spans
 + per-level traversal events) to JSON lines at PATH; ``--trace-chrome
 PATH`` writes the same trace as a Chrome/Perfetto-loadable JSON file.
-
-The reference's LM mode (``--arch``) waits for the port's LM models
-(ROADMAP item 9): asking for it exits with that reason.
 """
 from __future__ import annotations
 
@@ -35,6 +39,63 @@ import time
 
 import numpy as np
 import torch
+
+from ..configs.registry import ARCHS, get_config
+from ..models import transformer as tfm
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def serve_batch(cfg, params, prompts: torch.Tensor, gen: int):
+    """prompts (B, S) int32 -> greedy tokens (B, gen) int32, on the
+    prompts' device.  Returns (tokens, stats): ``prefill_s``,
+    ``decode_s`` (host clock, each ending in a synchronize on the card)
+    and ``tok_per_s`` = B * gen / decode_s."""
+    b, s = prompts.shape
+    device = prompts.device
+    max_len = s + gen
+    _sync(device)
+    t0 = time.perf_counter()
+    logits, cache = tfm.prefill(params, prompts, cfg, max_len=max_len)
+    _sync(device)
+    t_prefill = time.perf_counter() - t0
+
+    out = []
+    t1 = time.perf_counter()
+    tok = torch.argmax(logits, dim=-1).to(torch.int32)
+    for _ in range(gen):
+        out.append(tok)
+        logits, cache = tfm.decode_step(params, tok, cache, cfg)
+        tok = torch.argmax(logits, dim=-1).to(torch.int32)
+    _sync(device)
+    t_decode = time.perf_counter() - t1
+    stats = {"prefill_s": t_prefill, "decode_s": t_decode,
+             "tok_per_s": b * gen / max(t_decode, 1e-9)}
+    return torch.stack(out, dim=1), stats
+
+
+def serve_lm(args) -> dict:
+    """The LM serving run of ``--arch``: seeded random weights and
+    prompts, one ``serve_batch``; prints and returns its stats."""
+    from ..core.engine import resolve_device
+
+    device = resolve_device(args.device)
+    cfg, _ = get_config(args.arch, smoke=args.smoke)
+    params = tfm.init_lm(cfg, torch.Generator(device=device).manual_seed(0),
+                         device, dtype=getattr(torch, cfg.dtype))
+    prompts = torch.randint(
+        0, cfg.vocab, (args.batch, args.prompt_len),
+        generator=torch.Generator(device=device).manual_seed(1),
+        device=device, dtype=torch.int32)
+    toks, stats = serve_batch(cfg, params, prompts, args.gen)
+    print(f"generated {tuple(toks.shape)} on {device.type} "
+          f"prefill={stats['prefill_s'] * 1e3:.1f}ms "
+          f"decode={stats['decode_s'] * 1e3:.1f}ms "
+          f"({stats['tok_per_s']:.1f} tok/s)")
+    return stats
 
 
 def serve_traversals(args) -> dict:
@@ -125,16 +186,28 @@ def serve_traversals(args) -> dict:
 
 
 def main(argv=None):
-    ap = argparse.ArgumentParser()
+    ap = argparse.ArgumentParser(
+        description="Serve an LM (--arch: batched prefill + greedy decode) "
+                    "or graph-traversal queries (--traversal) on the card.")
     ap.add_argument("--traversal", action="store_true",
                     help="serve graph-traversal queries (plan-cached, "
-                         "reach-bucketed)")
-    ap.add_argument("--arch", default=None,
-                    help="the reference's LM mode: not ported yet")
+                         "reach-bucketed) instead of an LM")
+    ap.add_argument("--arch", choices=[a for a, (f, _) in ARCHS.items()
+                                       if f == "lm"],
+                    help="LM mode: the architecture to serve, random "
+                         "weights from a seed")
+    ap.add_argument("--smoke", action="store_true",
+                    help="LM mode: the arch's reduced SMOKE config")
     ap.add_argument("--device", default=None,
-                    help="torch device of the dataset (default: the card; "
-                         "'cpu' runs the plain versions on the CPU)")
-    ap.add_argument("--batch", type=int, default=4)
+                    help="torch device (default: the card; 'cpu' runs the "
+                         "plain versions on the CPU)")
+    ap.add_argument("--batch", type=int, default=4,
+                    help="sequences per LM batch, or roots per traversal "
+                         "request")
+    ap.add_argument("--prompt-len", type=int, default=32,
+                    help="LM mode: prompt tokens per sequence")
+    ap.add_argument("--gen", type=int, default=16,
+                    help="LM mode: tokens generated per sequence")
     ap.add_argument("--vertices", type=int, default=20_000)
     ap.add_argument("--height", type=int, default=10)
     ap.add_argument("--depth", type=int, default=4)
@@ -163,13 +236,11 @@ def main(argv=None):
                          "before dispatch)")
     args = ap.parse_args(argv)
 
-    if args.arch is not None:
-        raise SystemExit(
-            f"--arch {args.arch}: the LM serving mode is not ported yet "
-            "(ROADMAP item 9, the LM models); use --traversal")
-    if not args.traversal:
-        ap.error("--traversal is required (the LM mode is not ported)")
-    return serve_traversals(args)
+    if args.traversal:
+        return serve_traversals(args)
+    if args.arch is None:
+        ap.error("--arch is required unless --traversal is given")
+    return serve_lm(args)
 
 
 if __name__ == "__main__":

@@ -18,7 +18,7 @@ than the reference's JAX keys (``convert`` carries the reference's
 across).
 
 There are no ShapeDtypeStructs and no mesh: the dry-run and the
-shardings come with ROADMAP items 10-11, the LM cells with item 9.
+shardings come with ROADMAP items 10-11, the LM cells with item 10.
 """
 from __future__ import annotations
 
@@ -29,7 +29,8 @@ import numpy as np
 import torch
 
 from ..configs.base import GNNConfig, RecsysConfig
-from ..configs.registry import ARCHS, get_config, shapes_for
+from ..configs.registry import (ARCHS, CELL_FAMILIES, get_config,
+                                shapes_for)
 from ..core.csr import CSRIndex, build_csr
 from ..core.engine import resolve_device
 from ..data.graphgen import make_graph, make_molecule_batch
@@ -242,9 +243,9 @@ def build_cell(arch: str, shape_id: str, *, smoke: bool = False,
                device=None) -> CellPlan:
     """The cell ``arch`` x ``shape_id`` with concrete inputs on ``device``
     (``None``: the card, raising where CUDA is unavailable)."""
-    if arch not in ARCHS:
-        raise ValueError(f"{arch!r} has no cell in the port: the LM archs "
-                         "come with ROADMAP item 9, posdb-bfs with item 10")
+    if arch not in ARCHS or ARCHS[arch][0] not in CELL_FAMILIES:
+        raise ValueError(f"{arch!r} has no cell in the port: the LM cells "
+                         "and posdb-bfs come with ROADMAP item 10")
     device = resolve_device(device)
     cfg, family = get_config(arch, smoke=smoke)
     dims = shapes_for(family, smoke=smoke)[shape_id]

@@ -1,2 +1,3 @@
-"""Models the port serves: DeepFM (``recsys``) and the four GNN
-architectures, GatedGCN, GraphSAGE, EGNN and GAT (``gnn``)."""
+"""Models the port serves: DeepFM (``recsys``), the four GNN
+architectures, GatedGCN, GraphSAGE, EGNN and GAT (``gnn``), and the five
+decoder-only language models (``transformer``, built of ``layers``)."""

@@ -1710,3 +1710,112 @@ def test_train_cell_on_card_matches_cpu(cuda, arch, shape, monkeypatch):
     _, state, metrics = plan.fn(*plan.args, **kwargs)
     assert int(state["step"]) == 1
     assert all(bool(torch.isfinite(v)) for v in metrics.values())
+
+
+LM_ARCHS = ("qwen2-0.5b", "stablelm-1.6b", "stablelm-12b", "phi3.5-moe-42b",
+            "deepseek-v2-lite-16b")
+LM_TOL = 1e-4      # of the largest logit: float32, TF32 off, card vs CPU
+
+
+def _lm_smoke(arch, dtype):
+    from repro_torch.configs.registry import get_config
+    cfg, family = get_config(arch, smoke=True)
+    assert family == "lm"
+    return dataclasses.replace(cfg, dtype=dtype)
+
+
+def test_late_gather_moe_dispatch_on_card(cuda):
+    """``late_gather`` at the LM's three gathers: the token lookup (float32
+    embedding), the MoE dispatch of bfloat16 tokens at a routed dispatch's
+    (E·cap,) positions, where an empty slot holds T, and the combine at its
+    (T·k,) slots, where a dropped choice holds E·cap (two of each
+    sentinel appended); the kernel equals the plain version bit for
+    bit."""
+    from repro_torch.models import layers
+    cfg = _lm_smoke("deepseek-v2-lite-16b", "bfloat16")
+    moe = dataclasses.replace(cfg.moe, num_experts=64, top_k=6,
+                              capacity_factor=1.0)
+    cfg = dataclasses.replace(cfg, moe=moe)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    p = layers.init_moe(cfg, gen, cuda)
+    t = 300
+    xt = torch.randn((t, cfg.d_model), generator=gen, device=cuda) \
+        .to(torch.bfloat16)
+    route = layers.moe_route(p, xt, cfg)
+    slots = moe.num_experts * route.cap
+    sentinel = torch.tensor([t, t], dtype=torch.int32, device=cuda)
+    y = torch.randn((moe.num_experts * route.cap, cfg.d_model),
+                    generator=gen, device=cuda).to(torch.bfloat16)
+    embed = torch.randn((cfg.vocab, cfg.d_model), generator=gen, device=cuda)
+    toks = torch.randint(0, cfg.vocab, (t,), generator=gen, device=cuda,
+                         dtype=torch.int32)
+    for table, pos in ((xt, torch.cat([route.dispatch, sentinel])),
+                       (y, torch.cat([route.slot, sentinel * 0 + slots])),
+                       (embed, toks)):
+        before = lg_ops.LAUNCHES
+        got = lg_ops.late_gather(table, pos)
+        assert lg_ops.LAUNCHES - before == 1
+        want = late_gather_ref(table.cpu(), pos.cpu())
+        assert got.dtype == want.dtype
+        assert torch.equal(got.cpu().view(torch.uint8), want.view(torch.uint8))
+
+
+@pytest.mark.parametrize("arch", LM_ARCHS)
+def test_lm_prefill_and_decode_on_card_match_cpu(cuda, arch, monkeypatch):
+    """A SMOKE model in float32 (TF32 off): prefill and four greedy decode
+    steps on the card against the CPU run of the same weights fed the
+    card's tokens, each step's logits within LM_TOL of the largest; the
+    card's token equals the CPU's argmax where the CPU's top-two margin
+    exceeds that; ``late_gather`` launched once a block for the lookup and
+    twice per MoE layer; ``serve_batch``'s tokens equal the CPU's."""
+    from repro_torch.launch.serve import serve_batch
+    from repro_torch.models import transformer as tfm
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    cfg = _lm_smoke(arch, "float32")
+    params = tfm.init_lm(cfg, torch.Generator().manual_seed(0), "cpu")
+    card = _tree_to(params, cuda)
+    rng = np.random.default_rng(1)
+    prompts = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 20))
+                               .astype(np.int32))
+    per_block = 1 + (2 * cfg.n_layers if cfg.moe is not None else 0)
+    before = lg_ops.LAUNCHES
+    logits, cache = tfm.prefill(card, prompts.to(cuda), cfg, max_len=24)
+    want, cpu_cache = tfm.prefill(params, prompts, cfg, max_len=24)
+    for step in range(5):
+        got = logits.cpu()
+        scale = float(want.abs().max())
+        assert float((got - want).abs().max()) <= LM_TOL * scale
+        tok = torch.argmax(logits, dim=-1).to(torch.int32)
+        top2 = torch.topk(want, 2, dim=-1).values
+        clear = (top2[:, 0] - top2[:, 1]) > LM_TOL * scale
+        assert torch.equal(tok.cpu()[clear],
+                           torch.argmax(want, -1).to(torch.int32)[clear])
+        if step == 4:
+            break
+        logits, cache = tfm.decode_step(card, tok, cache, cfg)
+        want, cpu_cache = tfm.decode_step(params, tok.cpu(), cpu_cache, cfg)
+    assert lg_ops.LAUNCHES - before == 5 * per_block
+    toks, stats = serve_batch(cfg, card, prompts.to(cuda), 4)
+    want_toks, _ = serve_batch(cfg, params, prompts, 4)
+    assert toks.device.type == "cuda" and stats["tok_per_s"] > 0
+    assert torch.equal(toks.cpu(), want_toks)
+
+
+def test_lm_bf16_held_weights_on_card_are_bit_equal(cuda):
+    """On the card too, bfloat16-held weights give the bits of float32-held
+    ones under a bfloat16 config."""
+    from repro_torch.models import transformer as tfm
+    cfg = _lm_smoke("deepseek-v2-lite-16b", "bfloat16")
+    f32 = tfm.init_lm(cfg, torch.Generator(device=cuda).manual_seed(0), cuda)
+    held = _bf16_tree(f32)
+    toks = torch.randint(0, cfg.vocab, (2, 16), device=cuda,
+                         dtype=torch.int32)
+    a, _ = tfm.prefill(f32, toks, cfg)
+    b, _ = tfm.prefill(held, toks, cfg)
+    assert torch.equal(a, b)
+
+
+def _bf16_tree(tree):
+    if isinstance(tree, dict):
+        return {k: _bf16_tree(v) for k, v in tree.items()}
+    return tree.to(torch.bfloat16)

@@ -77,12 +77,13 @@ def grads_from_moments(mu_new, mu_old, gnorm, b1):
 
 
 def test_every_family_cell_is_covered():
-    assert {a for a, _ in SMOKE_CELLS} == set(ARCHS)
+    assert {a for a, _ in SMOKE_CELLS} == {
+        a for a, (family, _) in ARCHS.items() if family in ("gnn", "recsys")}
     assert len(SMOKE_CELLS) == 20
 
 
 def test_lm_archs_have_no_cell_yet():
-    with pytest.raises(ValueError, match="item 9"):
+    with pytest.raises(ValueError, match="item 10"):
         port_steps.build_cell("qwen2-0.5b", "train_4k", smoke=True,
                               device="cpu")
 
