@@ -1,3 +1,3 @@
 """Configurations of the models the port serves: the five language
-models, DeepFM and the four GNN architectures (``registry`` maps an arch
-id to its module)."""
+models, DeepFM, the four GNN architectures and the paper's BFS deployment
+(``registry`` maps an arch id to its module)."""

@@ -1,7 +1,7 @@
 """Configuration dataclasses, copied from the reference's
 ``src/repro/configs/base.py`` (the port keeps its own copy): the
 language models' (``LMConfig`` with its ``MoEConfig`` and ``MLAConfig``),
-the recommender's and the GNNs'."""
+the recommender's, the GNNs' and the paper's own BFS deployment's."""
 from __future__ import annotations
 
 import dataclasses
@@ -135,3 +135,16 @@ class GNNConfig:
     sample_sizes: Sequence[int] = ()     # graphsage fanouts
     aggregator: str = "mean"
     dtype: str = "float32"
+
+
+@dataclasses.dataclass(frozen=True)
+class BFSConfig:
+    """The paper's own workload as an arch (engine + dataset shape)."""
+
+    name: str
+    engine: str = "precursive"
+    num_vertices: int = 1 << 20
+    payload_cols: int = 8
+    max_depth: int = 16
+    frontier_cap: int = 1 << 16
+    result_cap: int = 1 << 20

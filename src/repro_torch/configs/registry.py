@@ -1,13 +1,11 @@
 """Architecture and shape registry of the models the port serves and
-trains: the five language models, the four GNN architectures and DeepFM,
-with their published input shapes and the reduced shapes of the CPU
-tests (the reference's ``src/repro/configs/registry.py``, its own copy).
-``cells`` enumerates the (arch x shape) cells of the GNN and recsys
-families, which ``launch.steps.build_cell`` builds; the LM cells join
-them with ROADMAP item 10 (the LM models serve through
-``models.transformer`` and ``launch.serve``).  The paper's BFS arch is
-left out: its deployment is driven through ``repro_torch.core.engine``
-directly.
+trains: the five language models, the four GNN architectures, DeepFM and
+the paper's own BFS deployment (``posdb-bfs``), with their published
+input shapes and the reduced shapes of the CPU tests (the reference's
+``src/repro/configs/registry.py``, its own copy).  ``cells`` enumerates
+every (arch x shape) cell with its skip reason, as the reference's does;
+``launch.steps.build_cell`` builds the LM, GNN and recsys cells (the BFS
+deployment is driven through ``repro_torch.core.engine``).
 """
 from __future__ import annotations
 
@@ -28,10 +26,11 @@ ARCHS: dict[str, tuple[str, str]] = {
     "egnn":                   ("gnn", "repro_torch.configs.egnn"),
     "gat-cora":               ("gnn", "repro_torch.configs.gat_cora"),
     "deepfm":                 ("recsys", "repro_torch.configs.deepfm"),
+    "posdb-bfs":              ("bfs", "repro_torch.configs.posdb_bfs"),
 }
 
-# the families whose cells ``cells`` yields
-CELL_FAMILIES = ("gnn", "recsys")
+# the families whose cells ``launch.steps.build_cell`` builds
+CELL_FAMILIES = ("lm", "gnn", "recsys")
 
 LM_SHAPES: dict[str, dict[str, Any]] = {
     "train_4k":    dict(kind="train",   seq=4096,   batch=256),
@@ -58,6 +57,10 @@ RECSYS_SHAPES: dict[str, dict[str, Any]] = {
     "serve_bulk":     dict(kind="serve", batch=262144),
     "retrieval_cand": dict(kind="retrieval", batch=1,
                            n_candidates=1_000_000),
+}
+
+BFS_SHAPES: dict[str, dict[str, Any]] = {
+    "traverse_1m": dict(kind="bfs"),
 }
 
 # reduced dims for per-cell smoke tests (same code path, CPU-sized)
@@ -95,16 +98,17 @@ def get_config(arch: str, smoke: bool = False):
 
 
 def shapes_for(family: str, smoke: bool = False) -> dict[str, dict]:
-    """The shapes of a family ("lm", "gnn" or "recsys"), published or
-    smoke."""
+    """The shapes of a family ("lm", "gnn", "recsys" or "bfs"), published
+    or smoke (the BFS shape has no smoke cut)."""
     if family == "lm":
         return SMOKE_LM_SHAPES if smoke else LM_SHAPES
     if family == "gnn":
         return SMOKE_GNN_SHAPES if smoke else GNN_SHAPES
     if family == "recsys":
         return SMOKE_RECSYS_SHAPES if smoke else RECSYS_SHAPES
-    raise ValueError(f"the port has no {family!r} shapes yet (the BFS "
-                     "entries come with ROADMAP item 10)")
+    if family == "bfs":
+        return BFS_SHAPES
+    raise ValueError(f"no family {family!r}")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -113,14 +117,29 @@ class Cell:
     shape: str
     family: str
     dims: dict
+    skip: str | None = None           # why the cell is skipped, if it is
 
 
-def cells(smoke: bool = False) -> Iterator[Cell]:
-    """Every (arch x shape) cell of the GNN and recsys families
-    (``CELL_FAMILIES``), in the reference's order."""
+# the reference's reason for skipping the published long_500k cell of an
+# arch with full attention
+LONG_500K_SKIP = ("pure full-attention arch: 512k-KV decode cell reserved "
+                  "for sub-quadratic attention (DESIGN.md §4); run with "
+                  "--attn-window for the documented extra")
+
+
+def cells(include_bfs: bool = False, smoke: bool = False) -> Iterator[Cell]:
+    """Every (arch x shape) cell in the reference's order, the BFS
+    deployment's only with ``include_bfs``; the published ``long_500k``
+    cell of an arch with no attention window carries the reference's
+    skip reason."""
     for arch, (family, _) in ARCHS.items():
-        if family not in CELL_FAMILIES:
+        if family == "bfs" and not include_bfs:
             continue
+        cfg, _ = get_config(arch, smoke)
         for shape_id, dims in shapes_for(family, smoke).items():
+            skip = None
+            if family == "lm" and shape_id == "long_500k" and not smoke \
+                    and getattr(cfg, "attn_window", None) is None:
+                skip = LONG_500K_SKIP
             yield Cell(arch=arch, shape=shape_id, family=family,
-                       dims=dict(dims))
+                       dims=dict(dims), skip=skip)

@@ -1,24 +1,29 @@
 """Cell builder: (arch x shape) -> a train or serve step with its inputs,
-the reference's ``src/repro/launch/steps.py`` for the GNN and recsys
+the reference's ``src/repro/launch/steps.py`` for the LM, GNN and recsys
 families.
 
 ``build_cell(arch, shape)`` returns a :class:`CellPlan`: ``fn(*args)``
 runs one step (a train step returns ``(params, opt_state, {"loss",
-"grad_norm"})``, a serve step its scores), and ``loss``, for a train
-cell, is the loss ``fn`` differentiates, of ``(params, *args[2:])``.
-The inputs are real tensors on one device (the card unless ``device``
-says otherwise), made from the reference's seeds: the graphs from
-``data.graphgen`` with seeds 3 (full graph, molecule; 5 and 7 for the
-molecule labels' and EGNN's coordinates' generators) and 4 (the
-minibatch cell's graph; 9 for its coordinates), the recsys batches from
-``recsys_batch(0, 0, B)``.  Those generators are numpy and bit-equal to
-the reference's, so a port cell holds the reference cell's data; the
-weights come from ``torch.Generator``s seeded 0, which draw other numbers
-than the reference's JAX keys (``convert`` carries the reference's
-across).
+"grad_norm", ...})``, a serve step its scores or logits), and ``loss``,
+for a GNN or recsys train cell, is the loss ``fn`` differentiates, of
+``(params, *args[2:])``.  The inputs are real tensors on one device (the
+card unless ``device`` says otherwise), made from the reference's seeds:
+an LM cell's tokens are the reference's ``_concretize`` draw (integers
+in {0, 1} from ``np.random.default_rng(0)``, a dict's entries in sorted
+key order) and a decode cell's cache is zeros at length seq - 1; the
+graphs come from ``data.graphgen`` with seeds 3 (full graph, molecule; 5
+and 7 for the molecule labels' and EGNN's coordinates' generators) and 4
+(the minibatch cell's graph; 9 for its coordinates), the recsys batches
+from ``recsys_batch(0, 0, B)``.  Those generators are numpy and
+bit-equal to the reference's, so a port cell holds the reference cell's
+data; the weights come from ``torch.Generator``s seeded 0, which draw
+other numbers than the reference's JAX keys (``convert`` carries the
+reference's across).
 
 There are no ShapeDtypeStructs and no mesh: the dry-run and the
-shardings come with ROADMAP items 10-11, the LM cells with item 10.
+shardings come with ROADMAP items 10-11.  The ``posdb-bfs`` arch has no
+cell, as in the reference: its deployment runs through
+``repro_torch.core.engine``.
 """
 from __future__ import annotations
 
@@ -28,9 +33,8 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from ..configs.base import GNNConfig, RecsysConfig
-from ..configs.registry import (ARCHS, CELL_FAMILIES, get_config,
-                                shapes_for)
+from ..configs.base import GNNConfig, LMConfig, RecsysConfig
+from ..configs.registry import CELL_FAMILIES, get_config, shapes_for
 from ..core.csr import CSRIndex, build_csr
 from ..core.engine import resolve_device
 from ..data.graphgen import make_graph, make_molecule_batch
@@ -38,10 +42,11 @@ from ..data.recsys_stream import recsys_batch, vocab_sizes
 from ..data.sampler import gather_block_features, sample_block
 from ..models import gnn as gnn_mod
 from ..models import recsys as recsys_mod
+from ..models import transformer as tfm
 from ..optim import AdamW, linear_warmup_cosine
 from ..optim.tree import make_train_step
 
-__all__ = ["CellPlan", "make_optimizer", "build_gnn_cell",
+__all__ = ["CellPlan", "make_optimizer", "build_lm_cell", "build_gnn_cell",
            "build_recsys_cell", "build_cell"]
 
 F32, I32 = torch.float32, torch.int32
@@ -61,6 +66,54 @@ def make_optimizer() -> AdamW:
 
 def _tensors(arrays: dict, device) -> dict:
     return {k: torch.from_numpy(v).to(device) for k, v in arrays.items()}
+
+
+def _concrete_ints(shapes: dict, device) -> dict:
+    """The reference's ``_concretize`` of int32 stand-ins of ``shapes``
+    (name -> shape): integers in {0, 1} from one
+    ``np.random.default_rng(0)``, drawn in sorted name order (JAX's leaf
+    order of a dict)."""
+    rng = np.random.default_rng(0)
+    return {k: torch.from_numpy(rng.integers(0, 2, shapes[k]).astype(
+        np.int32)).to(device) for k in sorted(shapes)}
+
+
+# ---------------------------------------------------------------------------
+# LM cells
+# ---------------------------------------------------------------------------
+
+def build_lm_cell(cfg: LMConfig, dims: dict, device) -> CellPlan:
+    """The LM cell of ``dims``' kind: ``train`` (``make_train_step`` with
+    AdamW over a (batch, seq) batch of tokens and labels), ``prefill``
+    (``prefill`` of (batch, seq) tokens into a cache of seq positions) or
+    ``decode`` (one ``decode_step`` of (batch,) tokens against a zero
+    cache of seq positions at length seq - 1)."""
+    kind, seq, batch = dims["kind"], dims["seq"], dims["batch"]
+    params = tfm.init_lm(cfg, torch.Generator(device=device).manual_seed(0),
+                         device)
+    if kind == "train":
+        opt = make_optimizer()
+        data = _concrete_ints({"tokens": (batch, seq),
+                               "labels": (batch, seq)}, device)
+        return CellPlan(tfm.make_train_step(cfg, opt),
+                        (params, opt.init(params), data),
+                        f"train_step {batch}x{seq}")
+    if kind == "prefill":
+        def prefill(params, tokens):
+            return tfm.prefill(params, tokens, cfg)
+        tokens = _concrete_ints({"tokens": (batch, seq)}, device)["tokens"]
+        return CellPlan(prefill, (params, tokens),
+                        f"prefill {batch}x{seq}")
+    if kind == "decode":
+        def decode(params, tokens, cache):
+            return tfm.decode_step(params, tokens, cache, cfg)
+        # the cache arrives filled to seq - 1; one new token is decoded
+        cache = tfm.init_cache(cfg, batch, seq, device=device)._replace(
+            length=seq - 1)
+        tokens = _concrete_ints({"tokens": (batch,)}, device)["tokens"]
+        return CellPlan(decode, (params, tokens, cache),
+                        f"serve_step(decode) {batch}xKV{seq}")
+    raise ValueError(kind)
 
 
 # ---------------------------------------------------------------------------
@@ -240,15 +293,22 @@ def build_recsys_cell(cfg: RecsysConfig, dims: dict, device) -> CellPlan:
 # ---------------------------------------------------------------------------
 
 def build_cell(arch: str, shape_id: str, *, smoke: bool = False,
-               device=None) -> CellPlan:
+               device=None, attn_window: int | None = None) -> CellPlan:
     """The cell ``arch`` x ``shape_id`` with concrete inputs on ``device``
-    (``None``: the card, raising where CUDA is unavailable)."""
-    if arch not in ARCHS or ARCHS[arch][0] not in CELL_FAMILIES:
-        raise ValueError(f"{arch!r} has no cell in the port: the LM cells "
-                         "and posdb-bfs come with ROADMAP item 10")
-    device = resolve_device(device)
+    (``None``: the card, raising where CUDA is unavailable);
+    ``attn_window`` sets an LM config's sliding window.  The
+    ``posdb-bfs`` arch raises ``ValueError``, as the reference's
+    does."""
     cfg, family = get_config(arch, smoke=smoke)
+    if family not in CELL_FAMILIES:
+        raise ValueError(f"{arch!r} ({family}) has no cell: its deployment "
+                         "runs through repro_torch.core.engine")
+    device = resolve_device(device)
     dims = shapes_for(family, smoke=smoke)[shape_id]
+    if family == "lm":
+        if attn_window is not None:
+            cfg = dataclasses.replace(cfg, attn_window=attn_window)
+        return build_lm_cell(cfg, dims, device)
     if family == "gnn":
         return build_gnn_cell(cfg, dims, device)
     return build_recsys_cell(cfg, dims, device)

@@ -125,7 +125,14 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     the softmax's sum is floored at 1e-30, as in the reference.  K/V are
     padded to a multiple of ``chunk`` and upcast once; each chunk is a
     slice of them, so no chunk-major copy of the cache is made.  Peak
-    memory is O(Sq * chunk) per head beside the float32 K/V."""
+    memory is O(Sq * chunk) per head beside the float32 K/V.
+
+    Where autograd records (grad on and q, k or v requiring it), each
+    chunk's scores are computed out of place, and the running max is held
+    as a constant: the output does not depend on it, so its gradient is
+    zero and autograd keeps one float32 (Sq, chunk) tensor a chunk, the
+    probabilities.  Otherwise the scores are updated in place, the same
+    values with no copy."""
     b, hkv, g, sq, dk = q.shape
     skv = k.shape[2]
     dv = v.shape[-1]
@@ -145,15 +152,23 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     m = torch.full((b, hkv, g, sq), NEG, dtype=torch.float32, device=dev)
     l = torch.zeros((b, hkv, g, sq), dtype=torch.float32, device=dev)
     acc = torch.zeros((b, hkv, g, sq, dv), dtype=torch.float32, device=dev)
+    recorded = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (q, k, v))
     for i in range(n_chunks):
         c0 = i * chunk
         s = torch.einsum("bhgqd,bhcd->bhgqc", q32, k32[:, :, c0:c0 + chunk])
-        s.mul_(scale)
-        s.masked_fill_(masked[:, c0:c0 + chunk] if masked is not None else
-                       _masked(q_pos, c0 + torch.arange(chunk, device=dev),
-                               kv_len, causal, window), NEG)
-        m_new = torch.maximum(m, s.amax(dim=-1))
-        p = s.sub_(m_new[..., None]).exp_()
+        cut = masked[:, c0:c0 + chunk] if masked is not None else \
+            _masked(q_pos, c0 + torch.arange(chunk, device=dev), kv_len,
+                    causal, window)
+        if recorded:
+            s = (s * scale).masked_fill(cut, NEG)
+            m_new = torch.maximum(m, s.detach().amax(dim=-1))
+            p = torch.exp(s - m_new[..., None])
+        else:
+            s.mul_(scale)
+            s.masked_fill_(cut, NEG)
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            p = s.sub_(m_new[..., None]).exp_()
         corr = torch.exp(m - m_new)
         acc = acc * corr[..., None] + torch.einsum(
             "bhgqc,bhcd->bhgqd", p, v32[:, :, c0:c0 + chunk])

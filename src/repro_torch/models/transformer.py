@@ -16,25 +16,35 @@ and ``decode_step`` write into the cache's tensors in place and return a
 ``KVCache`` over the same tensors; a token in [-V, 0) counts from the
 end once in both, and one outside [-V, V) gives a zero embedding row
 where the reference's ``jnp.take`` fills NaN (``lm_batch`` never makes
-one).  ``lm_loss`` is the forward value: its gradient, the
-train step and ``remat`` come with the training slice.
+one).
+
+Training (:func:`make_train_step`) holds the parameters in float32 and
+computes in ``cfg.dtype``, as the reference does.  With ``remat`` each
+layer runs under ``torch.utils.checkpoint`` and is recomputed whole in
+the backward, where the reference's ``jax.checkpoint(dots_saveable)``
+keeps its matmul outputs (those would hold every attention chunk's
+float32 scores); each ``loss_chunk`` of the cross-entropy is recomputed
+in the backward too, so neither the (B, S, V) logits nor autograd's
+copies of every chunk exist at once.
 """
 from __future__ import annotations
 
 from typing import Any, Dict, NamedTuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import LMConfig
 from ..core.engine import resolve_device
 from ..kernels.late_gather.ops import late_gather
-from ..optim.tree import tree_map
+from ..optim.tree import leaves, tree_map, unflatten, value_and_grad
 from .layers import (dense_ffn, gqa_attention, init_dense_ffn, init_gqa,
                      init_mla, init_moe, mla_attention, moe_ffn, rmsnorm,
                      write_block)
 
 __all__ = ["init_layer", "init_lm", "layer_params", "forward", "lm_loss",
-           "KVCache", "init_cache", "prefill", "decode_step"]
+           "KVCache", "init_cache", "prefill", "decode_step",
+           "make_train_step"]
 
 Params = Dict[str, Any]
 
@@ -125,37 +135,70 @@ def _layer_fwd(lp: Params, x: torch.Tensor, cfg: LMConfig,
     return h + f, aux, new_cache
 
 
-def forward(params: Params, tokens: torch.Tensor, cfg: LMConfig
+def _unstack(layers: Params, n: int) -> list:
+    """The ``n`` layers of the stacked layer tree as trees of views, one
+    ``unbind`` a leaf (whose gradient is one stack, not n scatters)."""
+    cols = [t.unbind(0) for t in leaves(layers)]
+    return [unflatten(layers, [c[i] for c in cols]) for i in range(n)]
+
+
+def _recording(t: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and t.requires_grad
+
+
+def forward(params: Params, tokens: torch.Tensor, cfg: LMConfig, *,
+            remat: bool | None = None
             ) -> tuple[torch.Tensor, torch.Tensor]:
-    """tokens (B, S) -> final hidden states (B, S, D) + total aux loss."""
+    """tokens (B, S) -> final hidden states (B, S, D) + total aux loss.
+    ``remat`` (``None``: ``cfg.remat``) recomputes each layer in the
+    backward (``torch.utils.checkpoint``), where autograd records; the
+    values are the same either way."""
+    remat = cfg.remat if remat is None else remat
     b, s = tokens.shape
     x = _embed(params, tokens, cfg)
     positions = torch.arange(s, device=x.device)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for i in range(cfg.n_layers):
-        x, a, _ = _layer_fwd(layer_params(params["layers"], i), x, cfg,
-                             positions)
+
+    def body(lp, x):
+        y, a, _ = _layer_fwd(lp, x, cfg, positions)
+        return y, a
+
+    for lp in _unstack(params["layers"], cfg.n_layers):
+        if remat and _recording(x):
+            x, a = checkpoint(body, lp, x, use_reentrant=False)
+        else:
+            x, a = body(lp, x)
         aux = aux + a
     return rmsnorm(x, params["final_ln"], cfg.norm_eps), aux
+
+
+def _chunk_xent(hx: torch.Tensor, w: torch.Tensor, lx: torch.Tensor
+                ) -> torch.Tensor:
+    """Sum over one chunk of (B, ck) positions of logsumexp - gold logit,
+    the logits float32 from ``hx @ w`` in ``hx``'s dtype."""
+    logits = (hx @ w.to(hx.dtype)).to(torch.float32)
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, lx[..., None])[..., 0]
+    return torch.sum(lse - gold)
 
 
 def lm_loss(params: Params, batch: Dict[str, torch.Tensor], cfg: LMConfig
             ) -> tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Chunked cross-entropy: the (B, S, V) logits tensor never fully
-    materializes — the unembed + softmax runs per sequence chunk."""
+    materializes — the unembed + softmax runs per sequence chunk, and,
+    where autograd records, again per chunk in the backward."""
     h, aux = forward(params, batch["tokens"], cfg)
     b, s, d = h.shape
     ck = min(cfg.loss_chunk, s)
     n = s // ck
     hc = h.reshape(b, n, ck, d)
     lc = batch["labels"].reshape(b, n, ck).long()
-    w = params["unembed"].to(h.dtype)
+    w = params["unembed"]
     tot = torch.zeros((), dtype=torch.float32, device=h.device)
     for i in range(n):
-        logits = (hc[:, i] @ w).to(torch.float32)
-        lse = torch.logsumexp(logits, dim=-1)
-        gold = torch.gather(logits, -1, lc[:, i, :, None])[..., 0]
-        tot = tot + torch.sum(lse - gold)
+        args = (hc[:, i], w, lc[:, i])
+        tot = tot + (checkpoint(_chunk_xent, *args, use_reentrant=False)
+                     if _recording(h) else _chunk_xent(*args))
     xent = tot / (b * s)
     return xent + aux, {"xent": xent, "aux": aux}
 
@@ -233,3 +276,23 @@ def decode_step(params: Params, tokens: torch.Tensor, cache: KVCache,
     """One new token per sequence: tokens (B,) + cache -> logits (B, V);
     the cache's tensors are written in place."""
     return _block_fwd(params, tokens[:, None], cfg, cache)
+
+
+# ---------------------------------------------------------------------------
+# train step
+# ---------------------------------------------------------------------------
+
+def make_train_step(cfg: LMConfig, optimizer):
+    """Returns ``step(params, opt_state, batch) -> (params, opt_state,
+    metrics)``: ``lm_loss``'s value and gradient (``batch`` holds
+    ``tokens`` and ``labels``, (B, S) integers on the parameters'
+    device), then one ``optimizer.update``; ``metrics`` holds ``loss``,
+    ``grad_norm``, ``xent`` and ``aux``, detached tensors."""
+
+    def step(params, opt_state, batch):
+        (loss, parts), grads = value_and_grad(lm_loss, params, batch, cfg,
+                                              has_aux=True)
+        params, opt_state, gnorm = optimizer.update(params, grads, opt_state)
+        return params, opt_state, {"loss": loss, "grad_norm": gnorm, **parts}
+
+    return step

@@ -45,34 +45,47 @@ def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
     return fn(tree, *rest)
 
 
+def _build(node: Any, prefix: tuple, order: dict) -> Any:
+    if isinstance(node, dict):
+        return {k: _build(v, prefix + (k,), order) for k, v in node.items()}
+    if isinstance(node, (list, tuple)):
+        return [_build(v, prefix + (i,), order) for i, v in enumerate(node)]
+    return order[prefix]
+
+
 def unflatten(like: Any, flat: list) -> Any:
     """The leaves ``flat`` (in :func:`leaves` order) in ``like``'s
-    structure."""
+    structure.  (A module-level recursion: a nested recursive function
+    would hold itself, and with it every leaf, in a reference cycle that
+    only the cyclic collector frees, so a training loop's old parameters
+    and moments would pile up on the card between collections.)"""
     it = iter(flat)
     order = {path: next(it) for path, _ in paths(like)}
-
-    def build(node, prefix):
-        if isinstance(node, dict):
-            return {k: build(v, prefix + (k,)) for k, v in node.items()}
-        if isinstance(node, (list, tuple)):
-            return [build(v, prefix + (i,)) for i, v in enumerate(node)]
-        return order[prefix]
-    return build(like, ())
+    return _build(like, (), order)
 
 
 def value_and_grad(loss_fn: Callable, params: Any, *args: Any,
-                   **kwargs: Any) -> tuple[torch.Tensor, Any]:
-    """``jax.value_and_grad(loss_fn)(params, *args)``: the loss, detached,
-    and its gradient with respect to every leaf of ``params``, in
-    ``params``' structure.  The loss runs on detached copies of the leaves
-    that require a gradient, so ``params`` itself is left as it was."""
+                   has_aux: bool = False, **kwargs: Any
+                   ) -> tuple[Any, Any]:
+    """``jax.value_and_grad(loss_fn, has_aux=has_aux)(params, *args)``: the
+    loss, detached, and its gradient with respect to every leaf of
+    ``params``, in ``params``' structure; with ``has_aux``, ``loss_fn``
+    returns ``(loss, aux)`` and the value is ``(loss, aux)`` with every
+    tensor of ``aux`` detached.  The loss runs on detached copies of the
+    leaves that require a gradient, so ``params`` itself is left as it
+    was."""
     live = tree_map(lambda p: p.detach().requires_grad_(True), params)
     with torch.enable_grad():
-        loss = loss_fn(live, *args, **kwargs)
+        out = loss_fn(live, *args, **kwargs)
+        loss = out[0] if has_aux else out
         grads = torch.autograd.grad(loss, leaves(live), allow_unused=True)
     flat = [torch.zeros_like(p) if g is None else g
             for p, g in zip(leaves(live), grads)]
-    return loss.detach(), unflatten(params, flat)
+    if has_aux:
+        value = (loss.detach(), tree_map(lambda t: t.detach(), out[1]))
+    else:
+        value = loss.detach()
+    return value, unflatten(params, flat)
 
 
 def make_train_step(loss_fn: Callable, optimizer) -> Callable:

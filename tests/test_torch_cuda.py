@@ -1819,3 +1819,85 @@ def _bf16_tree(tree):
     if isinstance(tree, dict):
         return {k: _bf16_tree(v) for k, v in tree.items()}
     return tree.to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("table_dtype", [torch.bfloat16, torch.float32])
+def test_late_gather_gradient_at_moe_shapes_on_card(cuda, table_dtype):
+    """``LateGather``'s gradient on the card (an ``index_add_`` with
+    atomics) at a MoE's dispatch (bfloat16 tokens at a routed dispatch's
+    (E·cap,) positions, empty slots T, each token at most k times) and
+    combine (expert rows at the (T·k,) slots, dropped choices E·cap),
+    against the plain ``index_add_`` of the same output gradient into a
+    zeroed table on the CPU: within n·u of each element's sum of absolute
+    terms (n the most terms a row gets, u the dtype's unit roundoff); the
+    combine's rows each get one term, so they agree exactly."""
+    from repro_torch.models import layers
+    cfg = _lm_smoke("deepseek-v2-lite-16b", "bfloat16")
+    moe = dataclasses.replace(cfg.moe, num_experts=64, top_k=6)
+    cfg = dataclasses.replace(cfg, moe=moe)
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    p = layers.init_moe(cfg, gen, cuda)
+    t = 512
+    xt = torch.randn((t, cfg.d_model), generator=gen, device=cuda) \
+        .to(torch.bfloat16)
+    route = layers.moe_route(p, xt, cfg)
+    y = torch.randn((moe.num_experts * route.cap, cfg.d_model),
+                    generator=gen, device=cuda).to(torch.bfloat16)
+    unit = 2.0 ** -8 if table_dtype == torch.bfloat16 else 2.0 ** -24
+    for table, pos in ((xt, route.dispatch), (y, route.slot)):
+        table = table.to(table_dtype).requires_grad_(True)
+        out = lg_ops.late_gather(table, pos)
+        cot = torch.randn(out.shape, generator=gen, device=cuda) \
+            .to(table_dtype)
+        (got,) = torch.autograd.grad(out, table, cot)
+        r = table.shape[0]
+        p64 = pos.cpu().long()
+        slot = torch.where((p64 >= 0) & (p64 < r), p64, r)
+        want = torch.zeros((r + 1, table.shape[1]), dtype=table_dtype) \
+            .index_add_(0, slot, cot.cpu())[:r]
+        sums = torch.zeros((r + 1, table.shape[1]), dtype=torch.float64) \
+            .index_add_(0, slot, cot.cpu().double().abs())[:r]
+        terms = int(torch.bincount(slot, minlength=r + 1)[:r].max())
+        err = (got.cpu().double() - want.double()).abs()
+        assert bool((err <= 2 * terms * unit * sums).all())
+        if terms == 1:
+            assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("arch", ["qwen2-0.5b", "deepseek-v2-lite-16b"])
+@pytest.mark.parametrize("remat", [True, False])
+def test_lm_train_step_on_card_matches_cpu(cuda, arch, remat, monkeypatch):
+    """A SMOKE model's ``make_train_step`` step in float32 (TF32 off) on the
+    card against the same step on the CPU: the loss within 1e-5
+    relative, every updated parameter and moment within 1e-4 of its
+    leaf's largest (plus twice the step's learning rate for a parameter,
+    AdamW's first update being close to lr * sign(g)); ``late_gather``
+    launched once for the lookup and, per MoE layer, twice (four times
+    with ``remat``)."""
+    from repro_torch.launch.steps import make_optimizer
+    from repro_torch.models import transformer as tfm
+    from repro_torch.data.tokens import lm_batch
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    cfg = dataclasses.replace(_lm_smoke(arch, "float32"), remat=remat)
+    params = tfm.init_lm(cfg, torch.Generator().manual_seed(0), "cpu")
+    opt = make_optimizer()
+    batch = {k: torch.from_numpy(v)
+             for k, v in lm_batch(0, 0, 2, 32, cfg.vocab).items()}
+    step = tfm.make_train_step(cfg, opt)
+    want = step(params, opt.init(params), batch)
+    before = lg_ops.LAUNCHES
+    card = _tree_to(params, cuda)
+    got = step(card, opt.init(card), {k: v.to(cuda)
+                                      for k, v in batch.items()})
+    per_layer = (4 if remat else 2) if cfg.moe is not None else 0
+    assert lg_ops.LAUNCHES - before == 1 + per_layer * cfg.n_layers
+    assert float(got[2]["loss"]) == pytest.approx(float(want[2]["loss"]),
+                                                  rel=1e-5)
+    lr = float(opt.lr(torch.tensor(1)))
+    for i, (g, w) in enumerate(zip(_tree_leaves(list(got[:2])),
+                                   _tree_leaves(list(want[:2])))):
+        assert g.device.type == "cuda"
+        scale = float(w.abs().max()) or 1.0
+        slack = 2 * lr if i < len(_tree_leaves(params)) else 0.0
+        torch.testing.assert_close(g.cpu(), w, rtol=1e-4,
+                                   atol=1e-4 * scale + slack)
