@@ -328,15 +328,38 @@ Phases (any failure raises and the script exits non-zero):
    float64 (within n·u of each element's sum of absolute terms), timed
    with its bound (``train lm late_gather gradient:``); ``train lm
    phase:`` its seconds;
-11. print one ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}``
+11. the launch tooling (``repro_torch.launch.{count,roofline,probe,
+   dryrun,hillclimb}``) and the examples (``repro_torch.examples``):
+   ``roofline card:`` (the data sheet's peaks beside the card's name and
+   power limit), ``roofline check:`` (phase 10's two LM train steps at
+   their cuts, and phase 8's GraphSAGE ``ogb_products`` and DeepFM
+   ``train_batch`` steps, each counted under ``launch.count.CountMode``
+   on the card and on ``meta``: FLOPs by dtype, eager and compulsory
+   bytes and the kernels' charges equal), ``roofline measured:`` (those
+   steps and phase 9's qwen2 prefill: the bound beside the warm time
+   measured, its share, and an LM step's MFU), ``examples:`` (each
+   example on the card at the reference script's widths, steps and
+   requests cut; its seconds, headline numbers and kernel launches,
+   counted into the ``examples`` path; every loss finite), then
+   ``quickstart`` and ``bfs_traversal`` again on the CPU, their rows,
+   levels, rankings and plans equal to the card's, ``dryrun:``
+   (``launch.dryrun.run_cell`` on ``meta`` at full size for every
+   published cell of qwen2-0.5b and deepseek-v2-lite-16b, a skipped one
+   with its reason), ``hillclimb:`` (``launch.hillclimb.measure`` of its
+   three cells and of qwen2-prefill under ``attn_q_block=4096
+   attn_chunk=8192``) and ``launch phase:``.  The full ``python -m
+   repro_torch.launch.dryrun --all`` is a command of its own;
+12. print one ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}``
    line last.
 
 It imports nothing of JAX and nothing of the JAX package ``repro``.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
+import io
 import json
 import statistics
 import subprocess
@@ -407,6 +430,13 @@ from repro_torch.data.tokens import lm_batch  # noqa: E402
 from repro_torch.launch.serve import serve_batch  # noqa: E402
 from repro_torch.checkpoint import CheckpointManager  # noqa: E402
 from repro_torch.launch import steps as train_steps  # noqa: E402
+from repro_torch.launch import count as launch_count  # noqa: E402
+from repro_torch.launch import dryrun, hillclimb, roofline  # noqa: E402
+from repro_torch.examples import bfs_traversal as ex_bfs  # noqa: E402
+from repro_torch.examples import gnn_reddit as ex_gnn  # noqa: E402
+from repro_torch.examples import quickstart as ex_quickstart  # noqa: E402
+from repro_torch.examples import recsys_serve as ex_recsys  # noqa: E402
+from repro_torch.examples import train_lm as ex_train_lm  # noqa: E402
 from repro_torch.launch import train as train_launch  # noqa: E402
 from repro_torch.distributed.fault_tolerance import \
     StragglerMonitor  # noqa: E402
@@ -428,9 +458,9 @@ MAX_DEPTH = 16
 CAPS = EngineCaps(frontier=1 << 18, result=1 << 20)
 ROOT_SEED = 1
 DEVICE = "cuda"                # the card
-HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
-FP32_OPS_PER_S = 67e12         # H100 SXM data sheet, float32 off the tensor
-#                                cores
+HBM_BYTES_PER_S = roofline.HBM_BW        # H100 SXM data sheet
+FP32_OPS_PER_S = roofline.FP32_FLOPS     # the same, float32 off the
+#                                          tensor cores
 TIMING_REPS = 20
 PROFILE_TRIES = 8              # sessions taken while one loses its events
 DENSE_ENGINES = ("bitmap", "hybrid", "diropt", "diropt_hybrid")
@@ -4231,6 +4261,7 @@ def train_phase(card: str, by_path: dict, flush) -> tuple:
         out = fn()
         row = out[0] if isinstance(out, tuple) else out
         seconds[name] = row["s"] = time.perf_counter() - t0
+        MEASURED[f"train {name}"] = row
         print("train: " + json.dumps(row), flush=True)
         torch.cuda.empty_cache()
         return out
@@ -4641,8 +4672,9 @@ def lm_phase(card: str, by_path: dict, flush) -> dict:
     del params32
     torch.cuda.empty_cache()
     for row in (lm_prefill_row, lm_decode_row, lm_serve_row):
-        print("lm: " + json.dumps(row(QWEN, cfg, params, by_path, card)),
-              flush=True)
+        line = row(QWEN, cfg, params, by_path, card)
+        MEASURED[f"lm {line['row']}"] = line
+        print("lm: " + json.dumps(line), flush=True)
         torch.cuda.empty_cache()
     print("lm attention: " + json.dumps(lm_attention_yardstick(cfg, card)),
           flush=True)
@@ -5083,6 +5115,7 @@ def train_lm_phase(card: str, by_path: dict, flush) -> dict:
     for arch in (QWEN, DEEPSEEK):
         row, arch_cases = train_lm_row(arch, card, by_path, flush)
         seconds[arch] = row["s"]
+        MEASURED[f"train lm {arch}"] = row
         print("train lm: " + json.dumps(row), flush=True)
         for name, case in arch_cases.items():
             print("train lm late_gather gradient: " + json.dumps(
@@ -5096,6 +5129,320 @@ def train_lm_phase(card: str, by_path: dict, flush) -> dict:
           f"clock), rows {json.dumps(seconds)}, launches "
           f"{json.dumps(by_path['lm_train'])}", flush=True)
     return cases
+
+
+# ---------------------------------------------------------------------------
+# phase 11: the launch tooling (launch/{count,roofline,probe,dryrun,
+# hillclimb}.py) and the examples (repro_torch/examples)
+# ---------------------------------------------------------------------------
+
+# the rows phases 8-10 printed, by label, whose warm ms the roofline reads
+MEASURED: dict = {}
+# the examples on the card at the reference scripts' widths, their steps
+# and requests cut for the script's time (the cuts are printed)
+EXAMPLES = dict(
+    gnn_reddit=dict(nodes=20_000, edges=400_000, batch=512, steps=20),
+    recsys_serve=dict(train_steps=10, train_batch=4096, serve_batch=512,
+                      serve_requests=20, vocab_scale=0.01),
+    train_lm=dict(steps=20, d_model=256, layers=4, batch=8, seq=128,
+                  vocab=8192))
+EXAMPLE_CUTS = {"gnn_reddit": "steps 100 -> 20",
+                "recsys_serve": "train steps 50 -> 10, requests 50 -> 20",
+                "train_lm": "steps 200 -> 20"}
+# launch/hillclimb.py's documented variant of qwen2-prefill
+HILLCLIMB_VARIANT = {"attn_q_block": 4096, "attn_chunk": 8192}
+# the keys of a dry-run row and of a hillclimb row that phase 11 prints
+DRYRUN_KEYS = ("arch", "shape", "flops_by_dtype", "hbm_bytes",
+               "compulsory_bytes", "compute_s", "memory_s", "collective_s",
+               "dominant", "model_flops", "useful_flops_ratio", "count_s",
+               "counted_on")
+HILLCLIMB_KEYS = ("arch", "shape", "label", "overrides", "flops",
+                  "flops_by_dtype", "hbm_bytes", "compute_s", "memory_s",
+                  "dominant", "roofline_frac", "count_s")
+
+
+def count_on(build, device) -> launch_count.Count:
+    """The count of one step built by ``build(device) -> (fn, args)``."""
+    fn, args = build(device)
+    _, c = launch_count.count_call(fn, *args)
+    if str(device) != "meta":
+        torch.cuda.synchronize()
+    del fn, args
+    return c
+
+
+def lm_train_builder(arch: str, batch: int, layers):
+    """``build(device) -> (fn, args)`` of phase 10's train step of
+    ``arch``: ``train_4k``'s sequence at ``batch``, ``layers`` of the
+    config's (``None``: all), float32 weights."""
+    sh = train_lm_shapes()
+    cfg = lm_config(arch, **({} if layers is None else {"n_layers": layers}))
+
+    def build(device):
+        plan = train_steps.build_lm_cell(
+            cfg, dict(kind="train", seq=sh["seq"], batch=batch), device)
+        return plan.fn, plan.args
+    return build, cfg
+
+
+def cell_builder(arch: str, shape: str):
+    """``build(device) -> (fn, args)`` of phase 8's cell: on the card
+    through :func:`train_cell` (phase 7's graphs), on ``meta`` through
+    ``launch.steps.build_cell``."""
+    def build(device):
+        if str(device) == "meta":
+            plan = train_steps.build_cell(arch, shape, smoke=TRAIN_SMOKE,
+                                          device="meta")
+        else:
+            plan, _ = train_cell(arch, shape, "")
+        return plan.fn, plan.args
+    return build
+
+
+def roofline_steps() -> list:
+    """(label, build, measured row label, model FLOPs, compute dtype) of
+    the steps phases 8 and 10 timed, at their cuts."""
+    sh = train_lm_shapes()
+    out = []
+    for arch in (QWEN, DEEPSEEK):
+        r = sh["rows"][arch]
+        build, cfg = lm_train_builder(arch, r["batch"], r["layers"])
+        out.append((f"{arch} train_4k (batch {r['batch']}, "
+                    f"{cfg.n_layers} layers)", build, f"train lm {arch}",
+                    roofline.lm_model_flops(cfg, r["batch"], sh["seq"],
+                                            train=True), cfg.dtype))
+    for arch, shape in (("graphsage-reddit", "ogb_products"),
+                        ("deepfm", "train_batch")):
+        out.append((f"{arch} {shape}", cell_builder(arch, shape),
+                    f"train {arch} {shape}", None, None))
+    return out
+
+
+def prefill_count(arch: str) -> tuple:
+    """Phase 9's prefill row on ``meta``: weights held in bfloat16, the
+    (batch, seq) prompt of ``lm_shapes()``'s cut."""
+    cfg = lm_config(arch)
+    p = lm_shapes()["prefill"]
+    params = tfm.init_lm(cfg, None, "meta", dtype=torch.bfloat16)
+    toks = torch.empty((p["batch"], p["seq"]), dtype=torch.int32,
+                       device="meta")
+    _, c = launch_count.count_call(tfm.prefill, params, toks, cfg)
+    return c, roofline.lm_model_flops(cfg, p["batch"], p["seq"],
+                                      train=False), cfg.dtype
+
+
+def measured_line(label: str, c, warm_ms: float, model_flops, dtype,
+                  card: str) -> dict:
+    """The count's bound beside a warm time phases 8-10 measured: the
+    compulsory bound (arguments read once, outputs written once) and the
+    eager one, each with its share of the warm time; for an LM step its
+    MFU against the peak of its compute dtype."""
+    comp = roofline.analyze(c, model_flops=model_flops,
+                            memory_basis="compulsory")
+    eager = roofline.analyze(c, memory_basis="hbm")
+    warm_s = warm_ms / 1e3
+    line = {"step": label, "warm_ms": warm_ms,
+            "flops_by_dtype": comp["flops_by_dtype"],
+            "compute_s": comp["compute_s"],
+            "compulsory_memory_s": comp["memory_s"],
+            "eager_memory_s": eager["memory_s"],
+            "bound_s": comp["bound_s"], "bound_by": comp["dominant"],
+            "share": comp["bound_s"] / warm_s,
+            "eager_bound_s": eager["bound_s"],
+            "eager_share": eager["bound_s"] / warm_s}
+    if model_flops:
+        line.update(model_flops=model_flops,
+                    useful_flops_ratio=comp["useful_flops_ratio"],
+                    mfu=model_flops / (warm_s * roofline.PEAK_FLOPS_BY_DTYPE[
+                        dtype]))
+    return {**line, "peaks": "data sheet", "card": card}
+
+
+def run_quiet(fn) -> tuple:
+    """``fn()`` with its printing caught: (result, the last printed
+    lines)."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = fn()
+    return out, buf.getvalue().strip().splitlines()[-2:]
+
+
+def examples_on_card(card: str, by_path: dict) -> dict:
+    """The five examples on the card, each counted into the examples path
+    (one ``examples:`` line each); returns quickstart's and
+    bfs_traversal's results for the CPU comparison."""
+    by_path["examples"] = dict.fromkeys(KERNEL_OPS, 0)
+    sizes = EXAMPLES
+    tree = {}
+
+    def line(name, fn, headline, must, cuts="none"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        (out, tail), launches = counted_into(by_path["examples"],
+                                             lambda: run_quiet(fn))
+        torch.cuda.synchronize()
+        s = time.perf_counter() - t0
+        require(all(launches[k] > 0 for k in must)
+                and launches["embedding_bag"] == 0
+                and (must or not any(launches.values())),
+                f"examples {name}: launches {launches}, want {sorted(must)} "
+                "(none where that is empty) and no embedding_bag")
+        row = {"example": name, "s": s, **headline(out),
+               "launches": launches, "cuts": cuts, "tail": tail,
+               "card": card}
+        print("examples: " + json.dumps(row), flush=True)
+        return out
+
+    tree["quickstart"] = line(
+        "quickstart", lambda: ex_quickstart.run(device=DEVICE),
+        lambda o: {"engines": o["engines"],
+                   "ranking": [lab for lab, _ in o["ranking"][:3]]},
+        {"frontier_expand", "late_gather"})
+    tree["bfs_traversal"] = line(
+        "bfs_traversal", lambda: ex_bfs.run(device=DEVICE),
+        lambda o: {k: o[k] for k in ("planner", "sweep", "batch",
+                                     "directions")},
+        {"frontier_expand", "late_gather"},
+        cuts="the 8-device distributed section waits for ROADMAP item 11")
+    g = sizes["gnn_reddit"]
+    losses = line(
+        "gnn_reddit", lambda: ex_gnn.run(g["nodes"], g["edges"], g["batch"],
+                                         g["steps"], DEVICE),
+        lambda o: {"first_loss": o["losses"][0],
+                   "last_loss": o["losses"][-1],
+                   "seeds_per_s": o["seeds_per_s"]},
+        set(), EXAMPLE_CUTS["gnn_reddit"])["losses"]
+    require(all(np.isfinite(losses)), f"gnn_reddit: losses {losses}")
+    r = sizes["recsys_serve"]
+    out = line(
+        "recsys_serve", lambda: ex_recsys.run(**r, device=DEVICE),
+        lambda o: {"first_loss": o["losses"][0],
+                   "last_loss": o["losses"][-1], "p50_ms": o["p50_ms"],
+                   "p99_ms": o["p99_ms"], "retrieval_ms": o["retrieval_ms"],
+                   "top5": o["top5"]},
+        {"late_gather"}, EXAMPLE_CUTS["recsys_serve"])
+    require(all(np.isfinite(out["losses"])),
+            f"recsys_serve: losses {out['losses']}")
+    t = sizes["train_lm"]
+    with tempfile.TemporaryDirectory() as ckpt:
+        out = line(
+            "train_lm", lambda: ex_train_lm.run(**t, ckpt_dir=ckpt,
+                                                device=DEVICE),
+            lambda o: {"params_m": o["params_m"],
+                       "first_loss": o["losses"][0],
+                       "last_loss": o["losses"][-1]},
+            {"late_gather"}, EXAMPLE_CUTS["train_lm"])
+    require(all(np.isfinite(out["losses"])),
+            f"train_lm: losses {out['losses']}")
+    return tree
+
+
+def without_times(tree):
+    """A result tree less its timings, its keys as JSON writes them."""
+    if isinstance(tree, dict):
+        return {str(k): without_times(v) for k, v in tree.items()
+                if k not in ("ms",)}
+    if isinstance(tree, (list, tuple)):
+        return [without_times(v) for v in tree]
+    return tree
+
+
+def launch_phase(card: str, by_path: dict) -> None:
+    """Phase 11: the roofline's peaks, each timed training step counted on
+    the card and on ``meta`` (equal), their bounds beside the warm times
+    phases 8-10 measured, the examples on the card and two of them on the
+    CPU, then the dry run's qwen2 and deepseek rows and the hillclimb
+    counts, all on ``meta``."""
+    t_phase = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print("roofline card: " + json.dumps({
+        "peak_flops_by_dtype": roofline.PEAK_FLOPS_BY_DTYPE,
+        "hbm_bytes_per_s": roofline.HBM_BW,
+        "nvlink_bytes_per_s": roofline.NVLINK_BW,
+        "source": roofline.PEAKS_SOURCE, "card": card}), flush=True)
+
+    # each step counted on the card and on meta
+    checked = {}
+    for label, build, measured, model_flops, dtype in roofline_steps():
+        t0 = time.perf_counter()
+        on_card = count_on(build, DEVICE)
+        card_s = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        on_meta = count_on(build, "meta")
+        meta_s = time.perf_counter() - t0
+        same = {k: getattr(on_card, k) == getattr(on_meta, k)
+                for k in ("flops_by_dtype", "hbm_bytes", "compulsory_bytes",
+                          "kernels")}
+        require(all(same.values()),
+                f"roofline check {label}: card {on_card.row()} and meta "
+                f"{on_meta.row()} differ in {same}")
+        print("roofline check: " + json.dumps({
+            "step": label, "equal": same, **on_meta.row(),
+            "card_count_s": card_s, "meta_count_s": meta_s,
+            "card": card}), flush=True)
+        checked[label] = (on_meta, measured, model_flops, dtype)
+    for label, (c, measured, model_flops, dtype) in checked.items():
+        warm = MEASURED[measured]["warm_ms"]
+        print("roofline measured: " + json.dumps(measured_line(
+            label, c, warm, model_flops, dtype, card)), flush=True)
+    c, model_flops, dtype = prefill_count(QWEN)
+    p = lm_shapes()["prefill"]
+    print("roofline measured: " + json.dumps(measured_line(
+        f"{QWEN} prefill_32k (batch {p['batch']})", c,
+        MEASURED[f"lm {QWEN} prefill_32k"]["warm_ms"], model_flops, dtype,
+        card)), flush=True)
+
+    tree = examples_on_card(card, by_path)
+    cpu_s = {}
+    for name, mod in (("quickstart", ex_quickstart),
+                      ("bfs_traversal", ex_bfs)):
+        t0 = time.perf_counter()
+        want, _ = run_quiet(lambda: mod.run(device="cpu"))
+        cpu_s[name] = time.perf_counter() - t0
+        got = without_times(json.loads(json.dumps(tree[name])))
+        want = without_times(json.loads(json.dumps(want)))
+        require(got == want, f"examples {name}: the card's rows and levels "
+                f"differ from the CPU run:\n{got}\n{want}")
+    print("examples: quickstart and bfs_traversal equal to their CPU runs "
+          "(rows, levels, rankings, plans): " + json.dumps(
+              {"cpu_s": cpu_s}), flush=True)
+
+    for cell in registry.cells():
+        if cell.arch not in (QWEN, DEEPSEEK):
+            continue
+        if cell.skip:
+            line = {"arch": cell.arch, "shape": cell.shape,
+                    "skipped": cell.skip}
+        else:
+            r = dryrun.run_cell(cell.arch, cell.shape, verbose=False,
+                                probe=False)
+            line = {k: r[k] for k in DRYRUN_KEYS}
+            line["argument_gib"] = \
+                r["memory_analysis"]["argument_size_in_bytes"] / 2 ** 30
+        print("dryrun: " + json.dumps({**line, "card": card}), flush=True)
+
+    runs = [(arch, shape, {}, "baseline")
+            for arch, shape in hillclimb.CELLS.values()]
+    runs.append((*hillclimb.CELLS["qwen2-prefill"], HILLCLIMB_VARIANT,
+                 ",".join(f"{k}={v}" for k, v in HILLCLIMB_VARIANT.items())))
+    hc = []
+    for arch, shape, overrides, label in runs:
+        r, _ = run_quiet(lambda: hillclimb.measure(arch, shape, overrides,
+                                                   label=label))
+        hc.append({**r, "arch": arch, "shape": shape})
+        print("hillclimb: " + json.dumps({k: hc[-1][k]
+                                          for k in HILLCLIMB_KEYS}),
+              flush=True)
+    base, variant = hc[0], hc[-1]
+    print("hillclimb qwen2-prefill: " + json.dumps({
+        "baseline_float32_flops": base["flops_by_dtype"]["float32"],
+        "variant_float32_flops": variant["flops_by_dtype"]["float32"],
+        "lower": variant["flops_by_dtype"]["float32"]
+        < base["flops_by_dtype"]["float32"]}), flush=True)
+    print(f"launch phase: {time.perf_counter() - t_phase:.3f} s (host "
+          f"clock), launches {json.dumps(by_path['examples'])}", flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -5530,11 +5877,13 @@ def main() -> None:
     # training last: the same graphs again, at the cells' own seeds
     sp["ogb_products_backward"], lg["train_gradient"] = train_phase(
         card, by_path, flush)
-    _GRAPHS.clear()
-    # LM serving, then LM training last: their models come to the card
-    # after every earlier path
+    # LM serving, then LM training: their models come to the card after
+    # every earlier path
     lg["lm"] = lm_phase(card, by_path, flush)
     lg["lm_train_gradient"] = train_lm_phase(card, by_path, flush)
+    # the launch tooling and the examples last (phase 8's graphs again)
+    launch_phase(card, by_path)
+    _GRAPHS.clear()
     for name, entry in kernels.items():
         entry["launches"] = sum(n[name] for n in by_path.values())
         entry["launches_by_path"] = {p: n[name] for p, n in by_path.items()}

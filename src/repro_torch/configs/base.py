@@ -54,7 +54,6 @@ class LMConfig:
     # baseline) -----------------------------------------------------------
     attn_q_block: int | None = None      # q-blocked triangular prefill
     remat: bool = True                   # activation checkpointing
-                                         # (training, not ported yet)
     moe_shard_axis: str | None = None    # explicit expert-parallel
                                          # sharding constraints (the
                                          # port raises: ROADMAP item 11)

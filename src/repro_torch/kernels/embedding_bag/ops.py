@@ -10,7 +10,10 @@ tensors it runs the plain version (``ref.py``).  On CUDA tensors it groups
 the entries by bag with one stable sort (``spmm_segment``'s
 :func:`segments`) and the hand-written kernel sums each bag; it launches
 or raises.  :func:`embedding_bag_sorted` is the kernel's half, for entries
-already in bag order.  ``LAUNCHES`` counts kernel launches.
+already in bag order.  ``LAUNCHES`` counts kernel launches.  On tensors
+all on the ``meta`` device both give an empty (num_bags, D) output and
+launch nothing; :func:`work` is a call's declared work
+(``kernels/accounting.py``).
 """
 from __future__ import annotations
 
@@ -18,6 +21,7 @@ from typing import Optional
 
 import torch
 
+from ..accounting import Work, charged, on_meta
 from ..late_gather.ops import late_gather
 from ..late_gather.ref import require_rows
 from ..spmm_segment.ops import segments
@@ -27,6 +31,31 @@ from .ref import check_combiner, embedding_bag_ref
 LAUNCHES = 0
 
 
+def _work(table: torch.Tensor, indices: torch.Tensor,
+          weights: Optional[torch.Tensor], num_bags: int) -> Work:
+    """The bags' offsets, every entry's index (and weight), at most
+    min(I, R) distinct rows read once, the (num_bags, D) output written
+    once; a multiply-add (an add unweighted) per entry and column."""
+    i, d = indices.shape[0], table.shape[1]
+    entry = indices.element_size() + (0 if weights is None
+                                      else weights.element_size())
+    row = d * table.element_size()
+    return Work(flops=(1.0 if weights is None else 2.0) * i * d,
+                bytes=(num_bags + 1) * 4 + i * entry + min(i, table.shape[0])
+                * row + num_bags * row)
+
+
+def work_sorted(table, indices, seg, weights, offsets, *, combiner="sum"
+                ) -> Work:
+    return _work(table, indices, weights, offsets.shape[0] - 1)
+
+
+def work(table, indices, segment_ids, num_bags, weights=None, *,
+         combiner="sum") -> Work:
+    return _work(table, indices, weights, num_bags)
+
+
+@charged("embedding_bag", work_sorted)
 def embedding_bag_sorted(table: torch.Tensor, indices: torch.Tensor,
                          seg: torch.Tensor, weights: Optional[torch.Tensor],
                          offsets: torch.Tensor, *, combiner: str = "sum"
@@ -37,6 +66,9 @@ def embedding_bag_sorted(table: torch.Tensor, indices: torch.Tensor,
     ``seg``."""
     global LAUNCHES
     require_rows(table.shape[0], indices.shape[0])
+    if on_meta(table, indices, seg, weights, offsets):
+        check_combiner(combiner)
+        return table.new_empty((offsets.shape[0] - 1, table.shape[1]))
     if table.device.type == "cpu" and indices.device.type == "cpu":
         return embedding_bag_ref(table, indices, seg, offsets.shape[0] - 1,
                                  weights, combiner=combiner)
@@ -48,6 +80,7 @@ def embedding_bag_sorted(table: torch.Tensor, indices: torch.Tensor,
     return out
 
 
+@charged("embedding_bag", work)
 def embedding_bag(table: torch.Tensor, indices: torch.Tensor,
                   segment_ids: torch.Tensor, num_bags: int,
                   weights: Optional[torch.Tensor] = None,
@@ -58,6 +91,9 @@ def embedding_bag(table: torch.Tensor, indices: torch.Tensor,
     least 1.  On the card the table must be float32.  An empty table
     (R = 0) raises IndexError unless I = 0, before any launch."""
     require_rows(table.shape[0], indices.shape[0])
+    if on_meta(table, indices, segment_ids, weights):
+        check_combiner(combiner)
+        return table.new_empty((num_bags, table.shape[1]))
     if table.device.type == "cpu" and indices.device.type == "cpu":
         return embedding_bag_ref(table, indices, segment_ids, num_bags,
                                  weights, combiner=combiner)

@@ -12,6 +12,9 @@ and a dozen torch ops a call, so slower, same result).  It launches or
 raises.  An empty ``perm`` gives a zero mask without a launch.  (L, V)
 planes (a batch of roots) pull every lane in the same one C call.
 ``LAUNCHES`` counts kernel launches (one C call, 1 or 2 device launches).
+On tensors all on the ``meta`` device it gives an empty mask and launches
+nothing; :func:`work` is a call's declared work
+(``kernels/accounting.py``).
 """
 from __future__ import annotations
 
@@ -20,6 +23,7 @@ from typing import Optional
 import torch
 
 from ...core.csr import CSRIndex
+from ..accounting import Work, charged, on_meta
 from .frontier_pull import frontier_pull_cuda
 from .layout import PullLayout, build_pull_layout
 from .ref import frontier_pull_ref
@@ -27,11 +31,29 @@ from .ref import frontier_pull_ref
 LAUNCHES = 0
 
 
+def work(rcsr: CSRIndex, join_src: torch.Tensor, join_dst: torch.Tensor,
+         frontier: torch.Tensor, visited: torch.Tensor, *,
+         layout: Optional[PullLayout] = None) -> Work:
+    """The per-entry byte count at its most: ``perm``, ``join_dst`` and
+    ``join_src`` over all E entries read once, and for each lane the (V,)
+    visited plane, at most min(E, V) frontier bytes and the (V,) output
+    written once."""
+    lanes = frontier.shape[0] if frontier.dim() == 2 else 1
+    v, e = frontier.shape[-1], rcsr.perm.shape[0]
+    shared = e * (rcsr.perm.element_size() + join_dst.element_size()
+                  + join_src.element_size())
+    return Work(bytes=shared + lanes * (v * visited.element_size()
+                                        + min(e, v) + v))
+
+
+@charged("frontier_pull", work)
 def frontier_pull_fused(rcsr: CSRIndex, join_src: torch.Tensor,
                         join_dst: torch.Tensor, frontier: torch.Tensor,
                         visited: torch.Tensor, *,
                         layout: Optional[PullLayout] = None) -> torch.Tensor:
     global LAUNCHES
+    if on_meta(rcsr, join_src, join_dst, frontier, visited, layout):
+        return torch.empty_like(frontier)
     if frontier.device.type == "cpu" and rcsr.perm.device.type == "cpu":
         return frontier_pull_ref(rcsr, join_src, join_dst, frontier,
                                  visited)

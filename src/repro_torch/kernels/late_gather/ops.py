@@ -9,6 +9,10 @@ Where autograd needs a table's gradient, the gather runs through
 output row's gradient into the table row it came from (``index_add_``,
 as the reference's gradient of ``jnp.take`` is XLA's scatter-add).  On
 the card those adds are atomics, so the sums are not bit-reproducible.
+
+On tensors all on the ``meta`` device the gather gives empty outputs of
+its shapes and dtypes and launches nothing; :func:`work` is a call's
+declared work (``kernels/accounting.py``).
 """
 from __future__ import annotations
 
@@ -16,6 +20,7 @@ from typing import Sequence
 
 import torch
 
+from ..accounting import Work, charged, on_meta
 from .late_gather import MAX_COLUMNS, late_gather_cuda
 from .ref import late_gather_columns_ref, require_rows
 
@@ -26,12 +31,25 @@ def _needs_grad(tables: Sequence[torch.Tensor]) -> bool:
     return torch.is_grad_enabled() and any(t.requires_grad for t in tables)
 
 
+def work(tables: Sequence[torch.Tensor], positions: torch.Tensor) -> Work:
+    """(P,) positions read once, at most min(P, R) distinct rows of each
+    table read once, the (P, W_c) outputs written once."""
+    p = positions.shape[0]
+    r = tables[0].shape[0] if len(tables) else 0
+    row = sum(t.shape[1] * t.element_size() for t in tables)
+    return Work(bytes=p * positions.element_size() + min(p, r) * row
+                + p * row)
+
+
 def _gather(tables: list, positions: torch.Tensor) -> list[torch.Tensor]:
-    """The plain version on CPU tensors, else one launch per MAX_COLUMNS
-    columns."""
+    """The plain version on CPU tensors, empty outputs on meta tensors,
+    else one launch per MAX_COLUMNS columns."""
     global LAUNCHES
     if tables:
         require_rows(tables[0].shape[0], positions.shape[0])
+    if on_meta(tables, positions):
+        return [t.new_empty((positions.shape[0],) + tuple(t.shape[1:]))
+                for t in tables]
     if positions.device.type == "cpu" and \
             all(t.device.type == "cpu" for t in tables):
         return late_gather_columns_ref(tables, positions)
@@ -67,6 +85,7 @@ class LateGather(torch.autograd.Function):
         return grad.index_add_(0, slot, grad_out)[:r], None
 
 
+@charged("late_gather", work)
 def late_gather_columns(tables: Sequence[torch.Tensor],
                         positions: torch.Tensor) -> list[torch.Tensor]:
     """(R, W_c) tables of one R, (P,) int32 positions -> the (P, W_c) rows

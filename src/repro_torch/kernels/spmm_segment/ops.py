@@ -23,6 +23,10 @@ same sum over the transposed edges (:func:`transpose_grouping`), so the
 hand-written kernel on the card and the plain version on the CPU, in
 both directions.  No gradient flows to ``weights``, and none through
 the lane axis or a mask: those raise where one is required.
+
+On tensors all on the ``meta`` device every call gives an empty output of
+the kernel's shape and dtype and launches nothing; :func:`work` is a
+call's declared work (``kernels/accounting.py``).
 """
 from __future__ import annotations
 
@@ -30,6 +34,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from ..accounting import Work, charged, on_meta
 from .ref import spmm_segment_lanes_ref, spmm_segment_ref
 from .spmm_segment import spmm_segment_cuda
 
@@ -76,11 +81,44 @@ def transpose_grouping(src: torch.Tensor, seg: torch.Tensor,
                     weights.index_select(0, s.order), s.offsets)
 
 
+def _work(x: torch.Tensor, src: torch.Tensor, weights: Optional[torch.Tensor],
+          num_out: int, mask: Optional[torch.Tensor]) -> Work:
+    """The (num_out + 1,) offsets, ``src`` and ``w`` read once, for each
+    lane at most min(E, N) distinct x rows (and, with a mask, their mask
+    bytes) read once and the (num_out, D) output written once; a
+    multiply-add per edge, column and lane."""
+    lanes = x.shape[0] if x.dim() == 3 else 1
+    n, d, e = x.shape[-2], x.shape[-1], src.shape[0]
+    w_bytes = (weights if weights is not None else x).element_size()
+    rows = min(e, n)
+    per_lane = rows * d * x.element_size() + num_out * d * x.element_size() \
+        + (rows if mask is not None else 0)
+    return Work(flops=2.0 * lanes * e * d,
+                bytes=(num_out + 1) * 4 + e * (src.element_size() + w_bytes)
+                + lanes * per_lane)
+
+
+def work_sorted(x, src, seg, weights, offsets, mask=None, **_) -> Work:
+    return _work(x, src, weights, offsets.shape[0] - 1, mask)
+
+
+def work(x, src, dst, weights, num_out) -> Work:
+    return _work(x, src, weights, num_out, None)
+
+
+def _meta_out(x: torch.Tensor, num_out: int) -> torch.Tensor:
+    return x.new_empty(tuple(x.shape[:-2]) + (num_out, x.shape[-1]))
+
+
+@charged("spmm_segment", work_sorted)
 def _sum_sorted(x: torch.Tensor, src: torch.Tensor, seg: torch.Tensor,
                 weights: torch.Tensor, offsets: torch.Tensor,
                 mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """The plain version on CPU tensors, else one kernel call."""
+    """The plain version on CPU tensors, an empty output on meta tensors,
+    else one kernel call."""
     global LAUNCHES
+    if on_meta(x, src, seg, weights, offsets, mask):
+        return _meta_out(x, offsets.shape[0] - 1)
     if x.device.type == "cpu" and src.device.type == "cpu":
         num_out = offsets.shape[0] - 1
         if x.dim() == 3:
@@ -115,6 +153,7 @@ class SpmmSegment(torch.autograd.Function):
                 None, None, None, None, None)
 
 
+@charged("spmm_segment", work_sorted)
 def spmm_segment_sorted(x: torch.Tensor, src: torch.Tensor, seg: torch.Tensor,
                         weights: torch.Tensor, offsets: torch.Tensor,
                         mask: Optional[torch.Tensor] = None, *,
@@ -147,11 +186,14 @@ def spmm_segment_sorted(x: torch.Tensor, src: torch.Tensor, seg: torch.Tensor,
     return SpmmSegment.apply(x, src, seg, weights, offsets, transposed)
 
 
+@charged("spmm_segment", work)
 def spmm_segment(x: torch.Tensor, src: torch.Tensor, dst: torch.Tensor,
                  weights: Optional[torch.Tensor], num_out: int
                  ) -> torch.Tensor:
     """(N, D) ``x``, (E,) int32 ``src``/``dst``, (E,) ``weights`` (None:
     all ones) -> (num_out, D)."""
+    if on_meta(x, src, dst, weights):
+        return _meta_out(x, num_out)
     if weights is None:
         weights = x.new_ones((src.shape[0],))
     if x.device.type == "cpu" and src.device.type == "cpu":

@@ -20,9 +20,14 @@ data; the weights come from ``torch.Generator``s seeded 0, which draw
 other numbers than the reference's JAX keys (``convert`` carries the
 reference's across).
 
-There are no ShapeDtypeStructs and no mesh: the dry-run and the
-shardings come with ROADMAP items 10-11.  The ``posdb-bfs`` arch has no
-cell, as in the reference: its deployment runs through
+``device="meta"`` is the counterpart of the reference's
+``concrete=False``: the parameters are drawn with no generator and every
+input is an empty meta tensor of the reference's ShapeDtypeStruct (no
+host data is made), so ``launch.count`` reckons a full-size step that no
+card could hold.  The reference pads graph dims only for a mesh, so the
+one-device cells keep the published sizes.  There is no mesh: the
+shardings come with ROADMAP item 11.  The ``posdb-bfs`` arch has no cell,
+as in the reference: its deployment runs through
 ``repro_torch.core.engine``.
 """
 from __future__ import annotations
@@ -64,15 +69,36 @@ def make_optimizer() -> AdamW:
     return AdamW(lr=linear_warmup_cosine(3e-4, 200, 10_000))
 
 
+def _on_meta(device) -> bool:
+    return torch.device(device).type == "meta"
+
+
+def _generator(device, seed: int = 0) -> Optional[torch.Generator]:
+    """A generator on ``device`` seeded ``seed``; none on ``meta``, where
+    nothing is drawn."""
+    if _on_meta(device):
+        return None
+    return torch.Generator(device=device).manual_seed(seed)
+
+
 def _tensors(arrays: dict, device) -> dict:
     return {k: torch.from_numpy(v).to(device) for k, v in arrays.items()}
+
+
+def _empty(specs: dict, device) -> dict:
+    """name -> (shape, dtype): empty tensors, the stand-ins of a meta
+    cell."""
+    return {k: torch.empty(shape, dtype=dtype, device=device)
+            for k, (shape, dtype) in specs.items()}
 
 
 def _concrete_ints(shapes: dict, device) -> dict:
     """The reference's ``_concretize`` of int32 stand-ins of ``shapes``
     (name -> shape): integers in {0, 1} from one
     ``np.random.default_rng(0)``, drawn in sorted name order (JAX's leaf
-    order of a dict)."""
+    order of a dict); empty int32 tensors on ``meta``."""
+    if _on_meta(device):
+        return _empty({k: (v, I32) for k, v in shapes.items()}, device)
     rng = np.random.default_rng(0)
     return {k: torch.from_numpy(rng.integers(0, 2, shapes[k]).astype(
         np.int32)).to(device) for k in sorted(shapes)}
@@ -89,8 +115,7 @@ def build_lm_cell(cfg: LMConfig, dims: dict, device) -> CellPlan:
     ``decode`` (one ``decode_step`` of (batch,) tokens against a zero
     cache of seq positions at length seq - 1)."""
     kind, seq, batch = dims["kind"], dims["seq"], dims["batch"]
-    params = tfm.init_lm(cfg, torch.Generator(device=device).manual_seed(0),
-                         device)
+    params = tfm.init_lm(cfg, _generator(device), device)
     if kind == "train":
         opt = make_optimizer()
         data = _concrete_ints({"tokens": (batch, seq),
@@ -138,8 +163,30 @@ def _gnn_loss_graph(cfg: GNNConfig, pooled: bool) -> Callable:
     return loss_fn
 
 
+def _graph_specs(dims: dict, cfg: GNNConfig, kind: str, d_feat: int
+                 ) -> dict:
+    """The reference's ShapeDtypeStructs of a full-graph or molecule
+    batch (name -> (shape, dtype)), unpadded as with no mesh."""
+    if kind == "molecule":
+        v = dims["batch"] * dims["n_nodes"]
+        e, nlab = dims["batch"] * dims["n_edges"], dims["batch"]
+    else:
+        v, e, nlab = dims["n_nodes"], dims["n_edges"], dims["n_nodes"]
+    specs = {"src": ((e,), I32), "dst": ((e,), I32),
+             "feats": ((v, d_feat), F32), "labels": ((nlab,), I32)}
+    if kind == "full_graph":
+        specs["mask"] = ((v,), F32)
+    else:
+        specs["graph_of_node"] = ((v,), I32)
+    if cfg.kind == "egnn":
+        specs["coords"] = ((v, 3), F32)
+    return specs
+
+
 def _concrete_graph(dims: dict, cfg: GNNConfig, kind: str, d_feat: int,
                     n_classes: int, device) -> dict:
+    if _on_meta(device):
+        return _empty(_graph_specs(dims, cfg, kind, d_feat), device)
     if kind == "molecule":
         g = make_molecule_batch(dims["batch"], dims["n_nodes"],
                                 dims["n_edges"], d_feat, seed=3)
@@ -165,9 +212,8 @@ def build_gnn_cell(cfg: GNNConfig, dims: dict, device) -> CellPlan:
     kind = dims["kind"]
     opt = make_optimizer()
     d_feat, n_classes = dims["d_feat"], dims["n_classes"]
-    params = gnn_mod.init_gnn(
-        cfg, d_feat, n_classes, torch.Generator(device=device).manual_seed(0),
-        device)
+    params = gnn_mod.init_gnn(cfg, d_feat, n_classes, _generator(device),
+                              device)
     if kind in ("full_graph", "molecule"):
         loss_fn = _gnn_loss_graph(cfg, pooled=kind == "molecule")
         batch = _concrete_graph(dims, cfg, kind, d_feat, n_classes, device)
@@ -184,8 +230,8 @@ def _build_minibatch_cell(cfg: GNNConfig, dims: dict, opt, params,
                           device) -> CellPlan:
     """Sampler + train step over the whole graph: ``sample_block`` (the
     paper's positional BFS) draws from a ``torch.Generator`` on the seeds'
-    device seeded with ``seed_scalar``, or takes the caller's ``draws``
-    (``data.sampler.sample_block``'s)."""
+    device seeded with ``seed_scalar`` (from none on ``meta``), or takes
+    the caller's ``draws`` (``data.sampler.sample_block``'s)."""
     v, e = dims["n_nodes"], dims["n_edges"]
     bsz, fanout = dims["batch_nodes"], tuple(dims["fanout"])
     is_sage = cfg.kind == "graphsage"
@@ -194,8 +240,8 @@ def _build_minibatch_cell(cfg: GNNConfig, dims: dict, opt, params,
 
     def loss_fn(params, graph, seeds, seed_scalar, draws=None):
         csr = CSRIndex(graph["indptr"], graph["perm"])
-        gen = None if draws is not None else \
-            torch.Generator(device=seeds.device).manual_seed(int(seed_scalar))
+        gen = None if draws is not None or _on_meta(seeds.device) else \
+            _generator(seeds.device, int(seed_scalar))
         layers = sample_block(gen, csr, graph["dst"], seeds, fanout,
                               draws=draws)
         labels = graph["labels"].index_select(0, seeds)
@@ -224,6 +270,18 @@ def _build_minibatch_cell(cfg: GNNConfig, dims: dict, opt, params,
         logits = gnn_mod.gnn_forward(params, cfg, sub)
         return gnn_mod.node_xent(logits[:bsz], labels)
 
+    if _on_meta(device):
+        specs = {"indptr": ((v + 1,), I32), "perm": ((e,), I32),
+                 "dst": ((e,), I32), "feats": ((v, dims["d_feat"]), F32),
+                 "labels": ((v,), I32)}
+        if cfg.kind == "egnn":
+            specs["coords"] = ((v, 3), F32)
+        args = (params, opt.init(params), _empty(specs, device),
+                torch.empty((bsz,), dtype=I32, device=device),
+                torch.empty((), dtype=I32, device=device))
+        return CellPlan(make_train_step(loss_fn, opt), args,
+                        f"sampled train_step B={bsz} fanout={fanout} over "
+                        f"V={v} E={e}", loss_fn)
     g = make_graph(v, e, dims["d_feat"], num_classes=dims["n_classes"],
                    seed=4)
     csr = build_csr(torch.from_numpy(g.src).to(device), v)
@@ -249,11 +307,15 @@ def _build_minibatch_cell(cfg: GNNConfig, dims: dict, opt, params,
 def build_recsys_cell(cfg: RecsysConfig, dims: dict, device) -> CellPlan:
     kind = dims["kind"]
     opt = make_optimizer()
-    params = recsys_mod.init_deepfm(
-        cfg, torch.Generator(device=device).manual_seed(0), device)
+    params = recsys_mod.init_deepfm(cfg, _generator(device), device)
     offsets = torch.from_numpy(recsys_mod.field_offsets(cfg)).to(device)
 
     def concrete_batch(b: int) -> dict:
+        if _on_meta(device):
+            return _empty({"dense": ((b, cfg.n_dense), F32),
+                           "sparse": ((b, cfg.n_sparse), I32),
+                           "label": ((b,), F32),
+                           "offsets": (tuple(offsets.shape), I32)}, device)
         out = _tensors(recsys_batch(0, 0, b,
                                     vocabs=vocab_sizes(cfg.vocab_scale)),
                        device)
@@ -282,7 +344,9 @@ def build_recsys_cell(cfg: RecsysConfig, dims: dict, device) -> CellPlan:
             return recsys_mod.retrieval_scores(
                 params, cfg, batch["dense"], batch["sparse"],
                 batch["offsets"], cand_ids)
-        cand = torch.arange(nc, dtype=I32, device=device) % 1000
+        cand = torch.empty((nc,), dtype=I32, device=device) \
+            if _on_meta(device) else \
+            torch.arange(nc, dtype=I32, device=device) % 1000
         return CellPlan(retrieve, (params, concrete_batch(1), cand),
                         f"retrieval_scores C={nc}")
     raise ValueError(kind)
@@ -295,7 +359,8 @@ def build_recsys_cell(cfg: RecsysConfig, dims: dict, device) -> CellPlan:
 def build_cell(arch: str, shape_id: str, *, smoke: bool = False,
                device=None, attn_window: int | None = None) -> CellPlan:
     """The cell ``arch`` x ``shape_id`` with concrete inputs on ``device``
-    (``None``: the card, raising where CUDA is unavailable);
+    (``None``: the card, raising where CUDA is unavailable; ``"meta"``:
+    empty stand-ins of the reference's shapes and dtypes);
     ``attn_window`` sets an LM config's sliding window.  The
     ``posdb-bfs`` arch raises ``ValueError``, as the reference's
     does."""

@@ -218,12 +218,22 @@ def make_deepfm_train_step_lazy(cfg: RecsysConfig, opt, mesh=None):
                    opt_state["nu"][name])
             p_rows, mu_rows, nu_rows = (t.index_select(0, safe) for t in old)
             new = adam(p_rows, agg, mu_rows, nu_rows)
-            # the sentinel rows are dropped before the write, where the
-            # reference's ``.at[upos].set(..., mode="drop")`` drops them
+            # where the reference's ``.at[upos].set(..., mode="drop")``
+            # drops the sentinel slots (all after the ascending live
+            # ones), they write slot 0's row again with slot 0's value
+            # (its old one where no slot is live): the same bits whichever
+            # write lands last, and no shape depends on the data, so the
+            # step also runs on ``meta``
             live = upos < rows_n
-            rows = upos[live].long()
-            return tuple(t.clone().index_copy_(0, rows, v[live])
-                         for t, v in zip(old, new))
+            rows = torch.where(live, upos.long(), safe[:1])
+
+            def write(t, v, was):
+                keep = live.view((-1,) + (1,) * (v.dim() - 1))
+                fill = torch.where(keep[:1], v[:1], was[:1])
+                return t.clone().index_copy_(0, rows,
+                                             torch.where(keep, v, fill))
+            return tuple(write(t, v, was) for t, v, was in
+                         zip(old, new, (p_rows, mu_rows, nu_rows)))
 
         new_table, mu_t, nu_t = lazy_update("table", g_emb)
         new_fo, mu_f, nu_f = lazy_update("first_order", g_fo)

@@ -1901,3 +1901,117 @@ def test_lm_train_step_on_card_matches_cpu(cuda, arch, remat, monkeypatch):
         slack = 2 * lr if i < len(_tree_leaves(params)) else 0.0
         torch.testing.assert_close(g.cpu(), w, rtol=1e-4,
                                    atol=1e-4 * scale + slack)
+
+
+@pytest.mark.parametrize("arch,shape", [
+    ("qwen2-0.5b", "train_4k"), ("deepseek-v2-lite-16b", "train_4k"),
+    ("qwen2-0.5b", "decode_32k"), ("graphsage-reddit", "ogb_products"),
+    ("gatedgcn", "minibatch_lg"), ("deepfm", "train_batch")])
+def test_cell_counts_the_same_on_meta_and_card(cuda, arch, shape,
+                                               monkeypatch):
+    """``launch.count`` reads a smoke cell's step on the card as it reads
+    the same step on ``meta``: FLOPs by dtype, eager bytes and compulsory
+    bytes exactly, the kernels charged the same; the card's step launched
+    its kernels, the meta step none."""
+    from repro_torch.launch.count import count_call
+    from repro_torch.launch.steps import build_cell
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    ops = (lg_ops, spmm_ops, eb_ops, fe_ops, fp_ops)
+    counts = {}
+    for device in ("meta", cuda):
+        plan = build_cell(arch, shape, smoke=True, device=device)
+        before = [m.LAUNCHES for m in ops]
+        _, c = count_call(plan.fn, *plan.args)
+        torch.cuda.synchronize()
+        launched = sum(m.LAUNCHES for m in ops) - sum(before)
+        counts[str(device)] = (c.flops_by_dtype, c.hbm_bytes,
+                               c.compulsory_bytes, c.kernels)
+        assert (launched > 0) == (device != "meta" and bool(c.kernels))
+    assert counts["meta"] == counts["cuda"]
+
+
+def swap_tensor(args, i: int, fn):
+    """``args`` with its ``i``-th tensor (depth first, into lists, a
+    ``CSRIndex`` and a ``PullLayout``) replaced by ``fn(tensor)``, and the
+    number of tensors."""
+    seen = [0]
+
+    def go(o):
+        if isinstance(o, torch.Tensor):
+            seen[0] += 1
+            return fn(o) if seen[0] - 1 == i else o
+        if isinstance(o, tuple) and hasattr(o, "_fields"):
+            return type(o)(*(go(v) for v in o))
+        if isinstance(o, (list, tuple)):
+            return type(o)(go(v) for v in o)
+        return o
+    return go(args), seen[0]
+
+
+def test_cuda_tensors_never_take_a_meta_branch(cuda):
+    """Each kernel's public call on CUDA tensors launches its kernel and
+    returns CUDA tensors.  With any one of its tensors (optional ones, a
+    table of a list, a CSR's and a layout's too) on ``meta`` and the rest
+    on the card, it raises, or launches and returns CUDA tensors: it never
+    gives the shape-only branch's meta output."""
+    from repro_torch.core.csr import CSRIndex
+    g = torch.Generator().manual_seed(5)
+    v, e, d, bags = 64, 256, 4, 9
+
+    def ints(n, hi, device=cuda):
+        return torch.randint(0, hi, (n,), generator=g,
+                             dtype=torch.int32).to(device)
+    src = torch.sort(ints(e, v, "cpu")).values
+    csr = build_csr(src.to(cuda), v)
+    x = torch.randn((v, d), generator=g).to(cuda)
+    table = torch.randn((v, d), generator=g).to(cuda)
+    w = torch.rand(e, generator=g).to(cuda)
+    flags = (torch.rand(v, generator=g) < 0.3).to(cuda)
+    join_src, join_dst = ints(e, v), ints(e, v)
+    rcsr = build_csr(join_dst, v)          # the pull's CSR over join_dst
+    layout = build_pull_layout(rcsr, join_src, join_dst, v)
+    s_src, s_dst = ints(e, v), spmm_ops.segments(ints(e, v), v)
+    idx, bag = ints(e, v), spmm_ops.segments(ints(e, bags), bags)
+    calls = [
+        (lg_ops, lg_ops.late_gather_columns,
+         ([table, table[:, :2].contiguous()], ints(30, v))),
+        (spmm_ops, spmm_ops.spmm_segment,
+         (x, ints(e, v), ints(e, v), w, v)),
+        (spmm_ops, spmm_ops.spmm_segment_sorted,
+         (x, s_src[s_dst.order], s_dst.seg, w[s_dst.order],
+          s_dst.offsets)),
+        (eb_ops, eb_ops.embedding_bag, (table, idx, ints(e, bags), bags, w)),
+        (eb_ops, eb_ops.embedding_bag_sorted,
+         (table, idx[bag.order], bag.seg, w[bag.order], bag.offsets)),
+        (fe_ops, fe_ops.frontier_expand_fused,
+         (csr, ints(16, v), torch.ones(16, dtype=torch.bool, device=cuda),
+          128)),
+        (fp_ops, fp_ops.frontier_pull_fused,
+         (rcsr, join_src, join_dst, flags, ~flags)),
+        (fp_ops, lambda *a: fp_ops.frontier_pull_fused(*a[:5],
+                                                       layout=a[5]),
+         (rcsr, join_src, join_dst, flags, ~flags, layout)),
+    ]
+
+    def to_meta(t):
+        return torch.empty(t.shape, dtype=t.dtype, device="meta")
+
+    def launched_on_card(mod, fn, args, before):
+        out = fn(*args)
+        torch.cuda.synchronize()
+        outs = out if isinstance(out, (list, tuple)) else [out]
+        return mod.LAUNCHES == before + 1 and \
+            all(o.device.type == "cuda" for o in outs)
+
+    for k, (mod, fn, args) in enumerate(calls):
+        assert launched_on_card(mod, fn, args, mod.LAUNCHES), k
+        _, n = swap_tensor(args, -1, None)
+        for i in range(n):
+            before = mod.LAUNCHES
+            try:
+                ok = launched_on_card(mod, fn, swap_tensor(args, i,
+                                                           to_meta)[0],
+                                      before)
+            except (ValueError, RuntimeError, TypeError, IndexError):
+                ok = mod.LAUNCHES == before
+            assert ok, (k, i)
