@@ -349,7 +349,27 @@ Phases (any failure raises and the script exits non-zero):
    three cells and of qwen2-prefill under ``attn_q_block=4096
    attn_chunk=8192``) and ``launch phase:``.  The full ``python -m
    repro_torch.launch.dryrun --all`` is a command of its own;
-12. print one ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}``
+12. the distributed positional BFS (``core.distributed_bfs``) in a
+   default group of world size 1 (``cpu:gloo,cuda:nccl``, a file store
+   in a temporary directory, destroyed after): ``make_distributed_pbfs``
+   on the card under NCCL at the deployment's size and caps (the 8
+   payload columns, depth 16) from root 0 and two seeded random inner
+   vertices, and from root 0 at ``posdb-bfs``'s own caps (frontier
+   2^15: overflow), counted into the ``distributed`` path (one
+   ``frontier_expand`` a level, one ``late_gather`` a call, one
+   all-gather a level); every output bit-equal to the same function's
+   gloo run on the CPU, the live positions equal to the BFS oracle as a
+   set, the values equal to the payload rows there, the overflow flags
+   equal (set at the config's caps); ``late_gather`` at the path's
+   payload take against its plain version (``distributed late_gather
+   case:``); ``distributed bfs:`` with warm ms, device busy ms and
+   launches, levels, all-gathers and their bytes, the payload bytes that
+   crossed a link (0) and the card; then ``bfs_traversal``'s distributed
+   section on the card (one spawned NCCL rank a card), its per-shard
+   counts equal to this process's gloo CPU run (``examples
+   distributed:``).  Multi-rank NCCL needs more than one card and is not
+   run here;
+13. print one ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}``
    line last.
 
 It imports nothing of JAX and nothing of the JAX package ``repro``.
@@ -361,6 +381,8 @@ import dataclasses
 import gc
 import io
 import json
+import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -372,6 +394,7 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
@@ -391,7 +414,12 @@ from repro_torch.core.engine import (PUSH_COUNTERPART,  # noqa: E402
                                      positions_available, result_lane,
                                      run_query, run_query_batch,
                                      run_query_buckets, run_query_multi)
+from repro_torch.core import operators  # noqa: E402
+from repro_torch.core.distributed_bfs import \
+    make_distributed_pbfs  # noqa: E402
 from repro_torch.core.operators import execute  # noqa: E402
+from repro_torch.core.table import payload_names  # noqa: E402
+from repro_torch.configs.posdb_bfs import CONFIG as POSDB  # noqa: E402
 from repro_torch.data.recsys_stream import (recsys_batch,  # noqa: E402
                                             vocab_sizes)
 from repro_torch.data.treegen import (TreeSpec, bfs_reference,  # noqa: E402
@@ -440,6 +468,8 @@ from repro_torch.examples import train_lm as ex_train_lm  # noqa: E402
 from repro_torch.launch import train as train_launch  # noqa: E402
 from repro_torch.distributed.fault_tolerance import \
     StragglerMonitor  # noqa: E402
+from repro_torch.distributed.spawn import init_default_group  # noqa: E402
+from repro_torch.launch.mesh import make_mesh  # noqa: E402
 from repro_torch.optim.tree import leaves as tree_leaves  # noqa: E402
 from repro_torch.optim.tree import tree_map, value_and_grad  # noqa: E402
 from repro_torch.planner import (DEFAULT_CONSTANTS,  # noqa: E402
@@ -5446,6 +5476,160 @@ def launch_phase(card: str, by_path: dict) -> None:
 
 
 # ---------------------------------------------------------------------------
+# phase 12: the distributed positional BFS
+
+DIST_RANDOM_ROOTS = 2          # seeded inner vertices besides root 0
+DIST_GROUP_TIMEOUT_S = 300.0
+
+
+def counting_all_gathers(fn):
+    """``fn()`` with ``ShardTargetExchange``'s all-gathers counted:
+    (result, the calls, the bytes each call gathered)."""
+    calls, nbytes = [], []
+    inner = operators.all_gather_tiled
+
+    def counted(t, group):
+        out = inner(t, group)
+        calls.append(1)
+        nbytes.append(out.numel() * out.element_size())
+        return out
+
+    return with_patched(operators, "all_gather_tiled", counted, fn), \
+        len(calls), nbytes
+
+
+def require_same_outputs(got, want, label: str) -> None:
+    """The five outputs of ``make_distributed_pbfs`` bit for bit."""
+    for name, g, w in zip(("gpos", "vals", "count", "depth", "overflow"),
+                          got, want):
+        g = g.cpu()
+        require(g.dtype == w.dtype and g.shape == w.shape
+                and torch.equal(g.view(torch.uint8), w.view(torch.uint8)),
+                f"{label}: {name} differs from the CPU run")
+
+
+def distributed_phase(cols: dict, levels: list, card: str, by_path: dict,
+                      flush) -> dict:
+    """Phase 12: ``make_distributed_pbfs`` at world size 1 on the card
+    (NCCL) against its gloo CPU run and the BFS oracle, counted into
+    ``by_path["distributed"]``; ``late_gather`` at its payload take;
+    then ``bfs_traversal``'s distributed section on the card.  Returns
+    the ``late_gather`` case."""
+    t_phase = time.perf_counter()
+    v = SPEC.num_vertices
+    inner = np.unique(cols["from"])
+    roots = [0] + np.random.default_rng(ROOT_SEED + 1).choice(
+        inner, DIST_RANDOM_ROOTS, replace=False).tolist()
+    payload = np.concatenate([cols[n] for n in
+                              payload_names(SPEC.payload_cols)], axis=1)
+    host = [torch.from_numpy(cols["from"]), torch.from_numpy(cols["to"]),
+            torch.from_numpy(payload)]
+    dev = [t.to(DEVICE) for t in host]
+    config_caps = EngineCaps(frontier=POSDB.frontier_cap,
+                             result=POSDB.result_cap)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_dist_")
+    init_default_group(0, 1, os.path.join(tmp, "store"), "cuda",
+                       DIST_GROUP_TIMEOUT_S)
+    try:
+        meshes = {d: make_mesh((1,), ("data",), device_type=d)
+                  for d in ("cuda", "cpu")}
+
+        def build(device, caps):
+            return make_distributed_pbfs(
+                meshes[torch.device(device).type], ("data",), v, caps=caps,
+                max_depth=MAX_DEPTH, num_payload_cols=SPEC.payload_cols,
+                device=device)
+
+        runs = [(r, CAPS) for r in roots] + [(0, config_caps)]
+        card_fns = {c: build(DEVICE, c) for c in (CAPS, config_caps)}
+        cpu_fns = {c: build("cpu", c) for c in (CAPS, config_caps)}
+        for c in card_fns:      # one warm call each, outside the count
+            card_fns[c](*dev, 0)
+        torch.cuda.synchronize()
+
+        by_path["distributed"] = dict.fromkeys(KERNEL_OPS, 0)
+        (got, launches), gathers, gather_bytes = counting_all_gathers(
+            lambda: counted_into(by_path["distributed"], lambda: [
+                card_fns[c](*dev, r) for r, c in runs]))
+        t0 = time.perf_counter()
+        want = [cpu_fns[c](*host, r) for r, c in runs]
+        cpu_s = time.perf_counter() - t0
+        level_counts = []
+        for (r, c), g, w in zip(runs, got, want):
+            label = f"distributed root {r} caps {tuple(c)}"
+            require_same_outputs(g, w, label)
+            gpos, vals, count, depth, ovf = g
+            live = gpos >= 0
+            require(bool(torch.equal(vals[live], dev[2][gpos[live].long()]))
+                    and not bool(vals[~live].any()),
+                    f"{label}: values are not the payload rows at gpos")
+            level_counts.append(int(depth) + 1)
+            if c == config_caps:
+                require(bool(ovf), f"{label}: frontier cap "
+                        f"{c.frontier} must overflow on this tree")
+                continue
+            lv = levels if r == 0 else bfs_reference(
+                cols["from"], cols["to"], r, MAX_DEPTH, v)
+            oracle = set().union(*lv[:MAX_DEPTH + 1])
+            require(not bool(ovf) and set(gpos[live].tolist()) == oracle,
+                    f"{label}: live positions differ from the BFS oracle")
+        want_launches = {**dict.fromkeys(KERNEL_OPS, 0),
+                         "frontier_expand": sum(level_counts),
+                         "late_gather": len(runs)}
+        require(launches == want_launches,
+                f"distributed path: launches {launches}, want "
+                f"{want_launches}")
+        require(gathers == sum(level_counts),
+                f"distributed path: {gathers} all-gathers for "
+                f"{sum(level_counts)} levels")
+
+        fn0 = card_fns[CAPS]
+        warm = warm_latency_ms(lambda: fn0(*dev, 0))
+        prof = profile_call("distributed root 0", lambda: fn0(*dev, 0), warm)
+        print("profile: " + json.dumps(prof), flush=True)
+        gpos0 = got[0][0]
+        positions = torch.where(gpos0 >= 0, gpos0,
+                                dev[0].shape[0]).to(torch.int32)
+        lg_case = late_gather_case([dev[2]], positions, flush)
+        print("distributed late_gather case: " + json.dumps(lg_case),
+              flush=True)
+        print("distributed bfs: " + json.dumps({
+            "world_size": 1, "backend": "nccl", "roots": roots,
+            "counts": [int(g[2]) for g in got],
+            "depths": [int(g[3]) for g in got],
+            "overflow": [bool(g[4]) for g in got],
+            "caps": [tuple(c) for _, c in runs],
+            "warm_ms": warm, "device_ms": prof["device_ms"],
+            "device_launches": prof["device_launches"],
+            "idle_share": prof["idle_share"],
+            "levels": level_counts, "all_gathers": gathers,
+            "all_gather_bytes_per_level": sorted(set(gather_bytes)),
+            "link_bytes_per_level": 0, "payload_link_bytes": 0,
+            "kernel_launches": launches, "cpu_run_s": cpu_s,
+            "card": card}), flush=True)
+
+        # the example's section: one NCCL rank a card, spawned, against
+        # as many spawned gloo ranks on the CPU
+        world = torch.cuda.device_count()
+        t0 = time.perf_counter()
+        ex, _ = run_quiet(lambda: ex_bfs.run_distributed(device=DEVICE))
+        ex_s = time.perf_counter() - t0
+        ex_cpu, _ = run_quiet(lambda: ex_bfs.run_distributed(
+            device="cpu", world_size=world))
+        require(ex["world"] == ex_cpu["world"] == world
+                and ex["counts"] == ex_cpu["counts"],
+                f"examples distributed: {ex} against the CPU run {ex_cpu}")
+        print("examples distributed: " + json.dumps({
+            **ex, "cpu_counts": ex_cpu["counts"], "cpu_ms": ex_cpu["ms"],
+            "s": ex_s, "card": card}), flush=True)
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"distributed phase: {time.perf_counter() - t_phase:.3f} s (host "
+          f"clock), launches {json.dumps(by_path['distributed'])}",
+          flush=True)
+    return lg_case
+
 
 def main() -> None:
     if not torch.cuda.is_available():
@@ -5881,9 +6065,11 @@ def main() -> None:
     # every earlier path
     lg["lm"] = lm_phase(card, by_path, flush)
     lg["lm_train_gradient"] = train_lm_phase(card, by_path, flush)
-    # the launch tooling and the examples last (phase 8's graphs again)
+    # the launch tooling and the examples (phase 8's graphs again)
     launch_phase(card, by_path)
     _GRAPHS.clear()
+    # the distributed BFS last, on the deployment's tree again
+    lg["distributed"] = distributed_phase(cols, levels, card, by_path, flush)
     for name, entry in kernels.items():
         entry["launches"] = sum(n[name] for n in by_path.values())
         entry["launches_by_path"] = {p: n[name] for p, n in by_path.items()}

@@ -28,7 +28,12 @@ driver.  The operators:
 ``EarlyMaterialize`` Fig. 3's per-level Materialize (tuple/row pipelines)
 ``AppendUnionAll``   the recursive UNION ALL: append the level block to the
                      working result, tagging each row with its BFS level
+``ShardTargetExchange`` the distributed engine's shard-aware union: ONE
+                     tiled all-gather of next-level vertex ids over the
+                     shard group, then the replicated dedup
 ``LateMaterialize``  Fig. 4's single post-fixed-point Materialize
+``RawPositions``     the distributed finisher: bare result positions (the
+                     caller materializes shard-locally)
 ``EmitTuples``       tuple finisher: the rows materialized level by level
 ``ProjectRows``      row-store finisher: columns projected out of full rows
 ``TopLevelJoin``     the Exp-3 rewrite: ONE top-level join on ``id``
@@ -103,7 +108,7 @@ from ..kernels.frontier_pull.layout import PullLayout
 from ..kernels.frontier_pull.ref import frontier_pull_ref
 from ..kernels.spmm_segment.ops import segments
 from .csr import CSRIndex, expand_frontier, expand_frontier_both, lane_take
-from .positions import PosBlock, append_block, compact_mask
+from .positions import PosBlock, append_block, block_from_mask, compact_mask
 from .semiring import (elem_combine, get_semiring, or_combine, propagate,
                        scatter_combine)
 from .table import ColumnTable, RowTable
@@ -115,7 +120,8 @@ __all__ = [
     "VisitedDedup", "CSRIndexJoin", "ScanHashJoin", "DenseBitmapStep",
     "PullStep", "DirectionSwitch", "HybridStep", "HybridPullStep",
     "WeightedExpand", "WeightedDenseStep", "EarlyMaterialize",
-    "AppendUnionAll", "LateMaterialize", "EmitTuples", "ProjectRows",
+    "AppendUnionAll", "ShardTargetExchange", "all_gather_tiled",
+    "LateMaterialize", "RawPositions", "EmitTuples", "ProjectRows",
     "CompactEmitted", "DeferredEmit", "TopLevelJoin", "Pipeline",
     "fixed_point", "execute", "fixed_point_batch", "execute_batch",
     "dedup_targets", "bitmap_level", "append_values", "WORD_LANES",
@@ -675,8 +681,11 @@ class Operator:
 class Seed(Operator):
     """The non-recursive child of the CTE.
 
-    kind='edges' — Filter[join_src = root] compacted to a position block;
-    kind='dense' — the root bit in a dense vertex bitmap.
+    kind='edges'    — Filter[join_src = root] compacted to a position block;
+    kind='vertices' — the frontier starts as the root vertex itself, the
+                      target block ``[root, -1, ...]`` (the distributed
+                      engine: targets are exchanged, not edges);
+    kind='dense'    — the root bit in a dense vertex bitmap.
     scan='rows' emulates the PostgreSQL SeqScan: the filter reads the
     row table's ``label`` column, strided over the interleaved rows, cast
     to int32.  ``label`` names the filter column in the plan.
@@ -748,6 +757,16 @@ class Seed(Operator):
             return state._replace(frontier_bits=bits, visited=visited,
                                   frontier_count=torch.ones_like(
                                       state.frontier_count))
+        if self.kind == "vertices":
+            targets = torch.full_like(state.targets, -1)
+            targets[..., 0] = root if isinstance(root, int) else \
+                torch.tensor(root, dtype=torch.int32, device=dev)
+            keep = torch.zeros_like(state.keep)
+            keep[..., 0] = True
+            return state._replace(targets=targets, keep=keep,
+                                  visited=visited,
+                                  frontier_count=torch.ones_like(
+                                      state.frontier_count))
         ej = _num_join(ctx)
         cap = state.frontier_pos.shape[-1]
         key = root if isinstance(root, int) else \
@@ -768,6 +787,8 @@ class Seed(Operator):
     def describe(self):
         if self.scan == "rows":
             return f"SeqScan[{self.label} = $root] -> full rows"
+        if self.kind == "vertices":
+            return "SeedVertices[$root]"
         if self.kind == "dense":
             return "SeedBitmap[$root]"
         return f"Filter[{self.label} = $root] -> PosBlock"
@@ -775,6 +796,8 @@ class Seed(Operator):
     def estimate(self, env):
         if self.kind == "dense":             # set one bit in a (V,) bitmap
             return OpCost(env.frontier_rows, float(env.num_vertices))
+        if self.kind == "vertices":
+            return OpCost(env.frontier_rows, 4.0)
         if self.scan == "rows":              # strided scan drags full rows
             return OpCost(env.frontier_rows,
                           float(env.num_edges) * env.row_bytes)
@@ -1541,6 +1564,61 @@ class AppendUnionAll(Operator):
         return OpCost(env.emitted_rows, env.frontier_cap * (width + 4.0))
 
 
+def all_gather_tiled(t: torch.Tensor, group) -> torch.Tensor:
+    """The (n * F, ...) concatenation of every group member's (F, ...)
+    ``t`` along its first axis, in the group's rank order (JAX's tiled
+    ``all_gather``), on ``t``'s device: one collective, every member
+    calls it."""
+    import torch.distributed as dist
+    out = t.new_empty((dist.get_world_size(group) * t.shape[0],)
+                      + tuple(t.shape[1:]))
+    # all_gather_into_tensor is the name where all_gather_single is not
+    # there yet; where both are, the older one warns
+    gather = getattr(dist, "all_gather_single", None) \
+        or dist.all_gather_into_tensor
+    gather(out, t.contiguous(), group=group)
+    return out
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardTargetExchange(Operator):
+    """The distributed engine's shard-aware operator: union the next
+    level's target vertices across the shards with ONE tiled all-gather
+    per level (O(frontier) vertex ids, never values), then dedup them
+    against the replicated ``visited``, so every shard derives the same
+    next frontier and the same count, which the loop reads on the host:
+    every member runs the same number of levels and so of collectives.
+    ``group`` is the shard group (a ``torch.distributed`` process group;
+    left out of equality and hashing); ``axis`` names the shard axes in
+    the plan's text."""
+
+    group: Any = dataclasses.field(compare=False, repr=False)
+    axis: Any = "data"
+
+    def step(self, ctx, state):
+        cap = state.frontier_pos.shape[-1]
+        slots = torch.arange(cap, dtype=torch.int32,
+                             device=state.frontier_pos.device)
+        live = slots < state.frontier_count
+        tloc = torch.where(live, _join_dst_at(ctx, state.frontier_pos), -1)
+        gathered = all_gather_tiled(tloc.to(torch.int32), self.group)
+        keep, visited = dedup_targets(gathered, gathered >= 0,
+                                      state.visited)
+        nxt, ovf = block_from_mask(gathered, keep, cap, -1)
+        return state._replace(targets=nxt.positions,
+                              keep=slots < nxt.count,
+                              frontier_count=nxt.count, visited=visited,
+                              overflow=state.overflow | ovf)
+
+    def describe(self):
+        return f"AllGatherTargets[axis={self.axis!r}] -> VisitedDedup"
+
+    def estimate(self, env):
+        # one tiled all-gather of vertex ids + replicated dedup
+        return OpCost(env.unique_rows,
+                      env.frontier_cap * 18.0 + env.num_vertices * 5.0)
+
+
 def _drain_value_frontier(ctx: Context, pipeline: "Pipeline",
                           state: TraversalState) -> torch.Tensor:
     """Fold the FINAL frontier's arrivals into the vertex accumulator.
@@ -1580,6 +1658,22 @@ class LateMaterialize:
     def estimate(self, env):
         return OpCost(env.frontier_rows,
                       env.result_cap * (_cols_bytes(env, self.cols) + 4.0))
+
+
+@dataclasses.dataclass(frozen=True)
+class RawPositions:
+    """Return the bare result positions: the distributed engine
+    materializes shard-locally, outside the driver."""
+
+    def finish(self, ctx, pipeline, state):
+        return BFSResult({}, state.result_pos, state.result_count,
+                         state.depth, state.overflow, state.result_depth)
+
+    def describe(self):
+        return "RawPositions[] (caller materializes shard-locally)"
+
+    def estimate(self, env):
+        return OpCost(env.frontier_rows, 0.0)
 
 
 def _no_positions(state: TraversalState) -> torch.Tensor:

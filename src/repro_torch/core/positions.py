@@ -20,8 +20,8 @@ import torch
 
 from .csr import lane_cumsum
 
-__all__ = ["PosBlock", "empty_block", "compact_mask", "append_block",
-           "take_late", "sort_positions_by_key"]
+__all__ = ["PosBlock", "empty_block", "compact_mask", "block_from_mask",
+           "append_block", "take_late", "sort_positions_by_key"]
 
 
 class PosBlock(NamedTuple):
@@ -68,6 +68,23 @@ def compact_mask(mask: torch.Tensor, capacity: int, sentinel: int
     out.scatter_(-1, slot.long(), torch.arange(
         n, dtype=torch.int32, device=mask.device).expand(mask.shape))
     return PosBlock(out[..., :capacity], count.clamp(max=capacity))
+
+
+def block_from_mask(values: torch.Tensor, mask: torch.Tensor, capacity: int,
+                    sentinel: int) -> tuple[PosBlock, torch.Tensor]:
+    """Compact ``values[mask]`` into a block of ``capacity``: the selected
+    values first, in their order in ``values`` (a stable compaction, the
+    slots :func:`compact_mask` finds), ``sentinel`` after them, including
+    the slots past ``n`` when ``capacity > n``.  Returns (block,
+    overflow), the overflow ``count > capacity`` as a 0-d tensor."""
+    n = values.shape[-1]
+    count = mask.sum(-1, dtype=torch.int32)
+    slots = compact_mask(mask, capacity, n).positions      # n: no value
+    ext = torch.cat([values.to(torch.int32),
+                     values.new_full(values.shape[:-1] + (1,), sentinel,
+                                     dtype=torch.int32)], -1)
+    out = torch.gather(ext, -1, slots.long())
+    return PosBlock(out, count.clamp(max=capacity)), count > capacity
 
 
 def append_block(buf: torch.Tensor, buf_count: torch.Tensor, block: PosBlock

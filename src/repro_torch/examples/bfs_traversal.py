@@ -2,11 +2,10 @@
 ``examples/bfs_traversal.py``): the PLANNER answering a SQL ``WITH
 RECURSIVE`` query without an engine name (cost-based selection over the
 pipelines + EXPLAIN's ranking), the single-device depth sweep, BATCHED
-multi-root serving (one call answering many users' roots) and
-direction-aware traversal (outbound / inbound / both).
-
-The reference's last section, the distributed positional BFS on 8
-devices, waits for the port's multi-device slice (ROADMAP item 11).
+multi-root serving (one call answering many users' roots),
+direction-aware traversal (outbound / inbound / both) and the
+DISTRIBUTED positional BFS (:func:`run_distributed`): 8 gloo ranks with
+``--device cpu``, on the card one NCCL rank a card.
 
     PYTHONPATH=src python -m repro_torch.examples.bfs_traversal [--device cpu]
 """
@@ -18,29 +17,35 @@ import numpy as np
 import torch
 
 from ..convert import dataset_from_numpy
+from ..core.distributed_bfs import gather_result, make_distributed_pbfs
 from ..core.engine import (RecursiveQuery, plan_and_run, plan_repr,
                            resolve_device, run_query, run_query_batch)
 from ..core.operators import EngineCaps
 from ..data.treegen import TreeSpec, make_edge_table
+from ..distributed.spawn import run_ranks
+from ..launch.mesh import make_mesh
 from ..planner import paper_listing, plan
 from ._common import device_argument, timed_ms
 
-__all__ = ["SPEC", "CAPS", "DEPTHS", "run", "main"]
+__all__ = ["SPEC", "CAPS", "DEPTHS", "DIST_CAPS", "DIST_DEPTH", "CPU_RANKS",
+           "run", "run_distributed", "main"]
 
 SPEC = TreeSpec(num_vertices=262_145, height=40, payload_cols=8, seed=1)
 CAPS = EngineCaps(frontier=1 << 16, result=1 << 18)
 DEPTHS = (5, 10, 20, 40)
-DISTRIBUTED_DEFERRED = ("the distributed PRecursive over an 8-device mesh "
-                        "waits for the port's multi-device slice (ROADMAP "
-                        "item 11)")
+DIST_CAPS = EngineCaps(frontier=1 << 14, result=1 << 15)
+DIST_DEPTH = 20
+CPU_RANKS = 8                # the reference's 8 placeholder devices
+RANK_TIMEOUT_S = 600.0
 
 
 def run(spec: TreeSpec = SPEC, caps: EngineCaps = CAPS,
         depths=DEPTHS, n_roots: int = 16, root_step: int = 1000,
         device=None) -> dict:
-    """Every section but the distributed one; returns each section's
-    numbers: ``planner`` (ranked labels, the pick, rows, the depth
-    column's largest, rows under ``WHERE depth <= 3``), ``sweep`` (depth
+    """Every section but the distributed one (:func:`run_distributed`);
+    returns each section's numbers: ``planner`` (ranked labels, the pick,
+    rows, the depth column's largest, rows under ``WHERE depth <= 3``),
+    ``sweep`` (depth
     -> rows, overflow, ms), ``batch`` (rows per root, ms), ``directions``
     (direction -> rows, levels, overflow, largest row depth) and
     ``plan``."""
@@ -108,15 +113,67 @@ def run(spec: TreeSpec = SPEC, caps: EngineCaps = CAPS,
     out["plan"] = plan_repr("precursive", 10, spec.payload_cols)
     print(out["plan"])
 
-    print("\n=== distributed PRecursive over an 8-device mesh ===")
-    print(f"not run: {DISTRIBUTED_DEFERRED}")
+    return out
+
+
+def _distributed_rank(rank: int, world: int, spec: TreeSpec,
+                      caps: EngineCaps, max_depth: int,
+                      device_type: str) -> dict:
+    """One rank of the distributed section: its rows of the table on its
+    device, the one-axis mesh, a warm call from root 0, the timed call,
+    then the shards' counts gathered (rank 0's result is the world's)."""
+    cols = make_edge_table(spec)
+    e_loc = cols["from"].shape[0] // world
+    rows = slice(rank * e_loc, (rank + 1) * e_loc)
+    device = torch.device(device_type, rank) if device_type == "cuda" \
+        else torch.device("cpu")
+    src, dst, pay = (torch.from_numpy(np.ascontiguousarray(cols[k][rows]))
+                     .to(device) for k in ("from", "to", "column1"))
+    mesh = make_mesh((world,), ("data",), device_type=device_type)
+    fn = make_distributed_pbfs(mesh, ("data",), spec.num_vertices,
+                               caps=caps, max_depth=max_depth,
+                               num_payload_cols=spec.payload_cols,
+                               device=device)
+    out, ms = timed_ms(lambda: fn(src, dst, pay, 0), device)
+    counts = gather_result(out, fn.group)[2]
+    return {"ms": ms, "counts": counts.tolist()}
+
+
+def run_distributed(spec: TreeSpec = SPEC, caps: EngineCaps = DIST_CAPS,
+                    max_depth: int = DIST_DEPTH, device=None,
+                    world_size: int | None = None) -> dict:
+    """The reference's last section: PRecursive from root 0 over a
+    one-axis mesh of ``world_size`` ranks, the table's rows sharded over
+    them, payload ``column1`` materialized shard-locally.  The ranks are
+    spawned processes: on the CPU ``CPU_RANKS`` gloo ranks, on the card
+    one NCCL rank a card (``torch.cuda.device_count()``).  Returns
+    ``world``, ``ms`` (rank 0's warm call, host clock and a sync),
+    ``rows`` and the per-shard ``counts``."""
+    device = resolve_device(device)
+    world = world_size or (torch.cuda.device_count() if device.type ==
+                           "cuda" else CPU_RANKS)
+    print(f"\n=== distributed PRecursive over a {world}-rank mesh "
+          f"({'NCCL' if device.type == 'cuda' else 'gloo'}) ===")
+    got = run_ranks(_distributed_rank, world, spec, caps, max_depth,
+                    device.type, device_type=device.type,
+                    timeout_s=RANK_TIMEOUT_S)[0]
+    out = {"world": world, "ms": got["ms"], "rows": sum(got["counts"]),
+           "counts": got["counts"]}
+    print(f"{max_depth}-hop traversal on {world} shards: {out['ms']:7.2f} "
+          f"ms, rows={out['rows']}")
+    print("per-shard result counts:", out["counts"])
+    print("values materialized shard-locally; only vertex ids crossed the "
+          "mesh (one all_gather per level).")
     return out
 
 
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     device_argument(ap)
-    return run(device=ap.parse_args(argv).device)
+    device = ap.parse_args(argv).device
+    out = run(device=device)
+    out["distributed"] = run_distributed(device=device)
+    return out
 
 
 if __name__ == "__main__":

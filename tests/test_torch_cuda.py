@@ -2015,3 +2015,69 @@ def test_cuda_tensors_never_take_a_meta_branch(cuda):
             except (ValueError, RuntimeError, TypeError, IndexError):
                 ok = mod.LAUNCHES == before
             assert ok, (k, i)
+
+
+# the distributed positional BFS (core/distributed_bfs.py): on one card
+# NCCL runs world size 1; several ranks need several cards
+
+def distributed_setup(tmp_path, device_type: str):
+    from repro_torch.distributed.spawn import init_default_group
+    init_default_group(0, 1, str(tmp_path / "store"), device_type, 120.0)
+
+
+def test_distributed_pbfs_world_one_nccl_equals_the_cpu_run(cuda, tmp_path):
+    """``make_distributed_pbfs`` on the card at world size 1 (NCCL for the
+    card's tensors, gloo for the CPU's) equals the same function's CPU
+    run bit for bit, at roots 0, a middle vertex and a leaf and at a
+    frontier cap that overflows, launching ``frontier_expand`` a level
+    and ``late_gather`` once a call."""
+    import torch.distributed as dist
+    from repro_torch.core.distributed_bfs import make_distributed_pbfs
+    from repro_torch.launch.mesh import make_mesh
+    spec = TreeSpec(num_vertices=2049, height=9, payload_cols=2, seed=3)
+    cols = make_edge_table(spec)
+    parent = int(cols["from"][-1])
+    roots = (0, int(cols["from"][parent - 1]), int(cols["to"][-1]))
+    host = [torch.from_numpy(cols[k]) for k in ("from", "to", "column1")]
+    dev = [t.to(cuda) for t in host]
+    distributed_setup(tmp_path, "cuda")
+    try:
+        meshes = {d: make_mesh((1,), ("data",), device_type=d)
+                  for d in ("cuda", "cpu")}
+        for caps in (EngineCaps(1024, 2048), EngineCaps(16, 2048)):
+            fns = {d: make_distributed_pbfs(
+                meshes[d], ("data",), spec.num_vertices, caps=caps,
+                max_depth=6, num_payload_cols=2,
+                device=None if d == "cuda" else "cpu") for d in meshes}
+            for root in roots:
+                fe0, lg0 = fe_ops.LAUNCHES, lg_ops.LAUNCHES
+                got = fns["cuda"](*dev, root)
+                torch.cuda.synchronize()
+                want = fns["cpu"](*host, root)
+                assert fe_ops.LAUNCHES - fe0 == int(got[3]) + 1
+                assert lg_ops.LAUNCHES - lg0 == 1
+                for g, w in zip(got, want):
+                    assert g.device.type == "cuda"
+                    assert torch.equal(g.cpu().view(torch.uint8),
+                                       w.view(torch.uint8))
+                if root == 0:
+                    assert bool(got[4]) == (caps.frontier == 16)
+    finally:
+        dist.destroy_process_group()
+
+
+def test_distributed_pbfs_on_the_card_over_gloo_raises(cuda, tmp_path):
+    """A CUDA run over a group without NCCL raises before any collective;
+    nothing falls back to gloo."""
+    import torch.distributed as dist
+    from repro_torch.core.distributed_bfs import make_distributed_pbfs
+    from repro_torch.launch.mesh import make_mesh
+    distributed_setup(tmp_path, "cpu")          # gloo only
+    try:
+        mesh = make_mesh((1,), ("data",), device_type="cpu")
+        with pytest.raises(RuntimeError, match="nccl"):
+            make_distributed_pbfs(mesh, ("data",), 2049,
+                                  caps=EngineCaps(1024, 1024), max_depth=6,
+                                  num_payload_cols=2, device="cuda")
+    finally:
+        dist.destroy_process_group()

@@ -6,10 +6,13 @@ sizes, against the reference's code at the same sizes.
 - ``quickstart``: each engine's rows and levels, and the planner's ranked
   labels, equal the reference's ``run_query`` and ``plan`` on the same
   ``TreeSpec``.
-- ``bfs_traversal``: every section it runs (the planner's ranking, pick,
-  rows, depth column and pushed-down filter; the depth sweep; the batch;
-  the three directions; the plan's text) equals the reference's at the
-  same spec.  Largest depths are read over the live rows.
+- ``bfs_traversal``: every section ``run`` runs (the planner's ranking,
+  pick, rows, depth column and pushed-down filter; the depth sweep; the
+  batch; the three directions; the plan's text) equals the reference's at
+  the same spec.  Largest depths are read over the live rows.  Its
+  distributed section (``run_distributed``, 8 spawned gloo ranks) gives
+  the per-shard counts and rows of the reference's section at a cut spec
+  (8 fake host devices, in a subprocess).
 - ``recsys_serve``, ``gnn_reddit`` and ``train_lm`` give finite losses,
   and their first step's loss, at the reference's weights and data
   (``gnn_reddit`` on the reference's seeds and sampler draws), is within
@@ -18,6 +21,9 @@ sizes, against the reference's code at the same sizes.
   and ``tests/test_torch_lm_train.py`` (a bfloat16 LM loss: 1e-2
   relative).
 """
+import json
+import subprocess
+import sys
 import tempfile
 
 import jax
@@ -64,6 +70,7 @@ from repro_torch.kernels.frontier_expand import ops as fe_ops
 from repro_torch.kernels.frontier_pull import ops as fp_ops
 from repro_torch.kernels.late_gather import ops as lg_ops
 from repro_torch.kernels.spmm_segment import ops as spmm_ops
+from conftest import subprocess_env
 from test_torch_engine import release_reference_executables  # noqa: F401
 from test_torch_sampler import reference_draws
 
@@ -74,6 +81,10 @@ BFS_SPEC = dict(num_vertices=3000, height=14, payload_cols=8, seed=1)
 BFS_CAPS = (1 << 12, 1 << 13)
 BFS_DEPTHS = (5, 10)
 N_ROOTS, ROOT_STEP = 4, 100
+# the distributed section's cut: E = 4,096 rows, 512 a shard of 8
+DIST_SPEC = dict(num_vertices=4097, height=14, payload_cols=8, seed=1)
+DIST_CAPS = (1 << 8, 1 << 9)
+DIST_DEPTH = 10
 GNN = dict(nodes=500, edges=4000, batch=16, steps=2)
 RECSYS = dict(train_steps=2, train_batch=64, serve_batch=16,
               serve_requests=5, vocab_scale=0.001, n_candidates=512)
@@ -146,7 +157,57 @@ def test_bfs_traversal_sections_match_the_reference(no_launch, capsys):
             "max_row_depth": int(np.asarray(r.row_depths)[:n].max())
             if n else 0}, direction
     assert got["plan"] == ref_plan_repr("precursive", 10, 8)
-    assert "ROADMAP item 11" in capsys.readouterr().out
+    assert "=== the PRecursive plan" in capsys.readouterr().out
+
+
+REFERENCE_DISTRIBUTED = """
+import json, sys
+import numpy as np, jax, jax.numpy as jnp
+from jax.sharding import NamedSharding, PartitionSpec as P
+from repro.core import EngineCaps
+from repro.core.distributed_bfs import make_distributed_pbfs
+from repro.data.treegen import TreeSpec, make_edge_table
+from repro.launch.mesh import make_mesh
+
+spec, caps, depth = json.loads(sys.argv[1])
+table = make_edge_table(TreeSpec(**spec))
+mesh = make_mesh((8,), ("data",))
+fn = make_distributed_pbfs(mesh, ("data",), spec["num_vertices"],
+                           caps=EngineCaps(*caps), max_depth=depth,
+                           num_payload_cols=spec["payload_cols"])
+sh = NamedSharding(mesh, P("data"))
+args = [jax.device_put(np.asarray(table.column(k)), sh)
+        for k in ("from", "to", "column1")]
+counts = np.asarray(fn(*args, jnp.int32(0))[2]).ravel()
+print(json.dumps(counts.tolist()))
+"""
+
+
+def test_bfs_traversal_distributed_section_matches_the_reference(
+        no_launch, capsys):
+    ref = subprocess.Popen(
+        [sys.executable, "-c", REFERENCE_DISTRIBUTED,
+         json.dumps([DIST_SPEC, DIST_CAPS, DIST_DEPTH])],
+        env=subprocess_env(8), stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+    try:
+        got = bfs_traversal.run_distributed(
+            TreeSpec(**DIST_SPEC), EngineCaps(*DIST_CAPS),
+            max_depth=DIST_DEPTH, device="cpu")
+        out, err = ref.communicate(timeout=300)
+    finally:
+        if ref.poll() is None:
+            ref.kill()
+            ref.communicate()
+    assert ref.returncode == 0, err
+    want = json.loads(out.strip().splitlines()[-1])
+    assert got["world"] == bfs_traversal.CPU_RANKS == len(want)
+    assert got["counts"] == want
+    assert got["rows"] == sum(want) > 0
+    assert got["ms"] > 0
+    printed = capsys.readouterr().out
+    assert f"rows={sum(want)}" in printed
+    assert f"per-shard result counts: {want}" in printed
 
 
 def test_recsys_serve_first_loss_matches_the_reference(no_launch):
